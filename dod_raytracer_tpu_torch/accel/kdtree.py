@@ -1,0 +1,140 @@
+"""kd-tree build orchestration: host build -> device ``KDArrays``.
+
+Counterpart of ``dod_raytracer_tpu.accel.kdtree``.  The build is host
+pointer-chasing (``_kdtree_np.build``); its output becomes flat tensors on
+the scene's device, plus the blocked leaf layout that the traversals read:
+
+* ``block_orig`` (B, S): original triangle id per slot of each leaf block
+  (S = leaf_chunk_lanes * lane_size), -1 for empty slots;
+* ``block_tris`` (B, S, 9): pre-gathered [A | B-A | C-A] rows (the plain
+  walk's Möller–Trumbore input);
+* ``block_g`` (B, 16, 5*Spad): per-block Plücker matrices (the CUDA packet
+  kernel's input, ``pack_block_g``);
+* ``block_aabb`` (6, B): per-block vertex AABB (the kernel's block pre-test).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import numpy as np
+import torch
+
+from . import _kdtree_np
+from ..scene import KDArrays
+from ..utils.math import cross
+
+logger = logging.getLogger("dod_raytracer_tpu_torch")
+
+
+def build_kdtree(tri_verts: np.ndarray, cfg, device="cuda") -> KDArrays:
+    built = _kdtree_np.build(
+        tri_verts,
+        lane_size=cfg.lane_size,
+        max_prims=cfg.MaxPrims,
+        intersect_cost=float(cfg.IntersectCost),
+        traversal_cost=float(cfg.TraversalCost),
+        empty_bonus=float(cfg.EmptyBonus),
+    )
+    num_lanes_in = (tri_verts.shape[0] + cfg.lane_size - 1) // cfg.lane_size
+    logger.info(
+        "kd build: %d tris, %d nodes (%d leaves), depth %d, "
+        "%d reordered lanes (dup ratio %.3f)",
+        tri_verts.shape[0], built.node_flag.shape[0],
+        int((built.node_flag == _kdtree_np.LEAF_FLAG).sum()), built.max_depth,
+        built.prim_nums.shape[0],
+        built.prim_nums.shape[0] / max(num_lanes_in, 1),
+    )
+
+    built = _kdtree_np.align_leaves(built, cfg.leaf_chunk_lanes)
+    perm = _kdtree_np.perm_from_prim_nums(built.prim_nums, tri_verts.shape[0], cfg.lane_size)
+    block = cfg.leaf_chunk_lanes * cfg.lane_size
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    kd = KDArrays(
+        node_flag=t(built.node_flag),
+        node_split=t(built.node_split),
+        node_right=t(built.node_right),
+        node_leaf_start=t(built.node_leaf_start),
+        node_leaf_lanes=t(built.node_leaf_lanes),
+        bounds_min=t(built.bounds_min),
+        bounds_max=t(built.bounds_max),
+        tri_perm=t(perm),
+        block_orig=t(perm.reshape(-1, block)),
+        lane_size=int(cfg.lane_size),
+        num_lanes=int(built.prim_nums.shape[0]),
+        max_leaf_lanes=int(built.max_leaf_lanes),
+        block_lanes=int(cfg.leaf_chunk_lanes),
+        max_depth=int(built.max_depth),
+    )
+    return refresh_kd_blocks(kd, t(tri_verts))
+
+
+def pad_blocks(S: int) -> int:
+    """Triangle-axis padding of ``block_g`` sections (128-multiple, the
+    JAX package's layout, kept so the two packages' tables are equal)."""
+    return ((S + 127) // 128) * 128
+
+
+def pack_block_g(block_verts: torch.Tensor) -> torch.Tensor:
+    """(B, S, 3, 3) block vertices -> (B, 16, 5*Spad) Plücker matrices.
+
+    Same layout as ``dod_raytracer_tpu.ops.pallas.block_loop_kernel
+    .pack_block_g``: five Spad-wide sections [s0|s1|s2|den|num]; the 16
+    feature rows match the ray vector [d, o x d, o, 1, 0 x 6].  Only rows
+    0-5 of s0..s2, rows 0-2 of den and rows 6-9 of num are non-zero; the
+    CUDA kernel relies on that structure.  Empty slots (all-zero vertices)
+    and padding give all-zero columns, which every test rejects.
+    """
+    B, S = block_verts.shape[:2]
+    spad = pad_blocks(S)
+    A = block_verts[..., 0, :]  # (B, S, 3)
+    Bv = block_verts[..., 1, :]
+    C = block_verts[..., 2, :]
+    n = cross(Bv - A, C - A)
+    z3 = torch.zeros_like(A)
+    z1 = torch.zeros_like(A[..., :1])
+
+    def col(d_rows, w_rows, o_rows, const):
+        return torch.cat([d_rows, w_rows, o_rows, const, z1.expand(B, S, 6)], dim=-1)  # (B, S, 16)
+
+    s0 = col(cross(A, Bv), Bv - A, z3, z1)
+    s1 = col(cross(Bv, C), C - Bv, z3, z1)
+    s2 = col(cross(C, A), A - C, z3, z1)
+    den = col(n, z3, z3, z1)
+    num = col(z3, z3, -n, torch.sum(n * A, dim=-1, keepdim=True))
+    G = torch.stack([s0, s1, s2, den, num], dim=1)  # (B, 5, S, 16)
+    if spad != S:
+        G = torch.nn.functional.pad(G, (0, 0, 0, spad - S))
+    G = G.transpose(2, 3)  # (B, 5, 16, Spad)
+    return G.permute(0, 2, 1, 3).reshape(B, 16, 5 * spad).contiguous()
+
+
+def _signed_zero_min(v: torch.Tensor) -> torch.Tensor:
+    """(B, S, 3, 3) -> (B, 3) min over slots and corners, ordering -0.0
+    below +0.0 as XLA's min does (torch keeps whichever zero it meets
+    first), so the block AABBs are bit-equal to the JAX package's."""
+    m = v.amin(dim=(1, 2))
+    neg_zero = ((v == 0) & torch.signbit(v)).any(dim=2).any(dim=1)
+    return torch.where(m == 0, torch.where(neg_zero, -0.0, 0.0), m)
+
+
+def refresh_kd_blocks(kd: KDArrays, tri_verts: torch.Tensor) -> KDArrays:
+    """(Re)materialize the blocked triangle layout from the current vertex
+    tensor (after any vertex update)."""
+    if kd.block_orig is None:
+        return kd
+    orig = kd.block_orig  # (B, S)
+    valid = (orig >= 0)[..., None, None]
+    verts = tri_verts.detach()[orig.clamp_min(0).long()]  # (B, S, 3, 3)
+    verts = torch.where(valid, verts, 0.0)
+    A = verts[..., 0, :]
+    e1 = verts[..., 1, :] - A
+    e2 = verts[..., 2, :] - A
+    rows = torch.cat([A, e1, e2], dim=-1).contiguous()  # (B, S, 9)
+    # empty slots get [+inf, -inf] so they never extend the box
+    lo = torch.where(valid, verts, float("inf"))
+    hi = torch.where(valid, verts, float("-inf"))
+    aabb = torch.cat([_signed_zero_min(lo), -_signed_zero_min(-hi)], dim=1).T.contiguous()  # (6, B)
+    return dataclasses.replace(kd, block_tris=rows, block_g=pack_block_g(verts),
+                               block_aabb=aabb)

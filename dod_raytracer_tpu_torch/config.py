@@ -1,0 +1,113 @@
+"""Typed render/runtime configuration.
+
+Same keys, defaults and ini format as ``dod_raytracer_tpu.config`` (the
+reference's ``Config`` + loader, ``src/utils/config.h:4-38``,
+``src/utils/config_loader.h:10-72``), so one ini file or override set
+drives both packages.  Knobs that only the JAX package implements keep
+their fields here so configs stay interchangeable; the port's modules
+raise ``NotImplementedError`` when one of them is switched on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass
+class Config:
+    # --- reference-parity keys (src/utils/config.h:6-14 defaults) ---
+    Height: int = 1080
+    Width: int = 1920
+    Epsilon: float = 1.0e-4
+    FrustrumMax: float = 1000.0  # loaded-but-unused in the reference; kept for parity
+    IntersectCost: int = 80
+    TraversalCost: int = 80
+    EmptyBonus: float = 0.0
+    MaxPrims: int = 8  # kd-tree: max *lanes* per leaf before forced split attempt
+
+    # --- renderer knobs ---
+    recursion_depth: int = 10  # reference hardcodes 10 (src/main.cpp:301)
+    # rays per render tile; 0 = auto (render._auto_ray_tile)
+    ray_tile: int = 32768
+    lane_size: int = 8  # triangles per kd-tree lane (reference c_triangleLaneSz)
+    leaf_chunk_lanes: int = 8  # lanes per leaf block (one block per walk step)
+    stack_depth: int = 64  # traversal worklist depth cap (kdtree.cpp:279)
+    use_kdtree: bool = True
+    triangle_backend: str = "jnp"  # brute-force path: only 'jnp' (plain torch) is ported
+    # kd traversal backend: 'auto' and 'packet' go through the packet
+    # wrapper (CUDA kernel on the card, plain walk on the CPU); the JAX
+    # package's 'xla', 'binned', 'mega' and 'forest' are not ported.
+    traversal_backend: str = "auto"
+    treelet_cap: int = 0  # JAX forest kernel only
+    forest_tile: int = 0  # JAX forest kernel only
+    packet_tile: int = 0  # JAX packet kernel only
+    fold_groups: int = 8  # JAX packet kernel only
+    dma_fifo: int = 0  # JAX packet kernel only
+    sort_kill_tail: bool = False  # JAX bounce sort only
+    # frame rays in 8x128 screen-block order; auto-disabled when W/H
+    # don't divide (an exact permutation of the wavefront)
+    block_ray_order: bool = True
+    sort_bounces: Optional[bool] = None  # None/False: off (sorting not ported)
+    remat_bounces: bool = False  # not ported (gradients are a later slice)
+    bounce_skip: bool = False  # not ported
+    # one flattened (L*N,) any-hit walk for the whole shadow pass instead
+    # of L sequential N-ray walks — identical visibility bits.  None =
+    # auto: on for CUDA tensors, off on the CPU (as the JAX package's
+    # CPU default, which the CPU tests compare against).
+    shadow_batch_lights: Optional[bool] = None
+    sort_shadow: Optional[bool] = None  # None/False: off (not ported)
+    shadow_reverse: Optional[bool] = None  # None/False: off (not ported)
+    # small-mesh crossover: meshes with <= this many triangles bypass the
+    # kd walk for the brute-force intersector (0 = always use the tree)
+    brute_threshold: int = 0
+    tri_shard_axis: str = ""  # leaf sharding: not ported
+    replicate_reference_bugs: bool = False  # e.g. cylinder hit color dropped
+    sort_dir_major: bool = False  # JAX bounce sort only
+
+    @property
+    def Ratio(self) -> float:
+        # src/utils/config.h:8 — recomputed from W/H, not independently loadable.
+        return float(self.Width) / float(self.Height)
+
+    @classmethod
+    def load(cls, path: Optional[str] = None, **overrides) -> "Config":
+        """Build a Config from an ini file plus keyword overrides.
+
+        Mirrors ``Config::Load`` (``config.h:16-37``): unknown keys in the
+        file are ignored with defaults retained; the file may set any subset.
+        """
+        cfg = cls()
+        if path is not None:
+            for key, value in _parse_ini(path).items():
+                if not hasattr(cfg, key):
+                    continue
+                field_type = type(getattr(cfg, key))
+                if field_type is bool:
+                    setattr(cfg, key, value.strip().lower() in ("1", "true", "yes"))
+                else:
+                    setattr(cfg, key, field_type(value))
+        for key, value in overrides.items():
+            if not hasattr(cfg, key):
+                raise KeyError(f"unknown config key: {key}")
+            setattr(cfg, key, value)
+        return cfg
+
+
+def _parse_ini(path: str) -> dict:
+    """Parse the reference's ``Key: Value`` format (config_loader.h:26-56).
+
+    Lines without a colon are skipped; whitespace around key and value is
+    stripped; later duplicates win.
+    """
+    out = {}
+    with open(path, "r") as f:
+        for line in f:
+            if ":" not in line:
+                continue
+            key, _, value = line.partition(":")
+            key = key.strip()
+            value = value.strip()
+            if key:
+                out[key] = value
+    return out

@@ -1,0 +1,114 @@
+"""Scene-level closest-hit and any-hit queries.
+
+Counterpart of ``dod_raytracer_tpu.intersect``: the per-family kernels
+fused with the reference main loop's chaining protocol (``main.cpp:314-321``)
+— families in the order sphere -> plane -> cylinder -> triangles (kd
+tree), each clipped at the running closest t, a later family winning only
+on a strictly smaller t.  The kd walk receives the clip tightened by the
+cheap families first.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .ops import cylinder as cyl_ops
+from .ops import plane as plane_ops
+from .ops import sphere as sphere_ops
+from .ops import triangle as tri_ops
+from .ops.ray import INF, FamilyHit, Hit, closer, miss_like
+
+
+def _prefer_brute(scene, cfg) -> bool:
+    """Small-mesh crossover: meshes with <= cfg.brute_threshold triangles
+    bypass the kd walk for the brute-force intersector (0 = never)."""
+    thr = int(getattr(cfg, "brute_threshold", 0))
+    return 0 < scene.n_triangles <= thr
+
+
+def _check_triangle_knobs(cfg) -> None:
+    if getattr(cfg, "tri_shard_axis", ""):
+        raise NotImplementedError("leaf-sharded triangles are not ported yet")
+    if getattr(cfg, "triangle_backend", "jnp") != "jnp":
+        raise NotImplementedError(
+            f"triangle_backend={cfg.triangle_backend!r}: that Pallas kernel is not ported yet")
+
+
+def _triangles_closest(scene, o, d, t_max, cfg) -> FamilyHit:
+    if scene.n_triangles == 0:
+        return miss_like(o.shape[0], o.device)
+    _check_triangle_knobs(cfg)
+    if scene.kd is not None and not _prefer_brute(scene, cfg):
+        from .ops.traverse import kd_closest
+
+        _, idx, hit = kd_closest(scene.kd, scene.triangles, o, d, t_max, cfg)
+        return tri_ops.triangle_hit_attrs(scene.triangles, o, d, idx, hit, scene.mesh_colors)
+    return tri_ops.intersect_triangles_brute(scene.triangles, scene.mesh_colors, o, d, t_max)
+
+
+def _triangles_occluded(scene, o, d, t_max, cfg) -> torch.Tensor:
+    if scene.n_triangles == 0:
+        return torch.zeros(o.shape[:-1], dtype=torch.bool, device=o.device)
+    _check_triangle_knobs(cfg)
+    if scene.kd is not None and not _prefer_brute(scene, cfg):
+        from .ops.traverse import kd_any
+
+        return kd_any(scene.kd, scene.triangles, o, d, t_max, cfg)
+    return tri_ops.occluded_triangles_brute(scene.triangles.verts.detach(), o, d, t_max)
+
+
+def closest_families(scene, o, d, cfg, t_max) -> FamilyHit:
+    """Closest hit over the non-triangle families only (sphere -> plane ->
+    cylinder); ``minimum(result.t, t_max)`` is the clip the triangle
+    query receives in ``closest_hit``."""
+    eps = cfg.Epsilon
+    best = sphere_ops.intersect_spheres(scene.spheres, o, d, t_max)
+    best = closer(best, plane_ops.intersect_planes(scene.planes, o, d, torch.minimum(best.t, t_max), eps))
+    return closer(
+        best,
+        cyl_ops.intersect_cylinders(
+            scene.cylinders, o, d, torch.minimum(best.t, t_max), eps,
+            color_bug=cfg.replicate_reference_bugs,
+            n_valid=scene.n_cylinders,
+        ),
+    )
+
+
+def closest_hit(scene, o, d, cfg, t_max=None) -> Hit:
+    """Globally closest hit across all families (the per-pixel family chain
+    of main.cpp:312-321 collapsed into one fused reduction)."""
+    n = o.shape[0]
+    if t_max is None:
+        t_max = torch.full((n,), INF, dtype=torch.float32, device=o.device)
+    best = closest_families(scene, o, d, cfg, t_max)
+    best = closer(best, _triangles_closest(scene, o, d, torch.minimum(best.t, t_max), cfg))
+
+    mask = best.t < t_max
+    t_safe = torch.where(mask, best.t, 0.0)
+    point = o + d * t_safe[:, None]
+    return Hit(t=best.t, point=point, normal=best.normal, color=best.color, mask=mask)
+
+
+def occluded_families(scene, o, d, t_max, cfg) -> torch.Tensor:
+    """Any-hit over the non-triangle families only."""
+    eps = cfg.Epsilon
+    blocked = sphere_ops.occluded_spheres(scene.spheres, o, d, t_max)
+    blocked = blocked | plane_ops.occluded_planes(scene.planes, o, d, t_max, eps)
+    blocked = blocked | cyl_ops.occluded_cylinders(scene.cylinders, o, d, t_max, eps, n_valid=scene.n_cylinders)
+    return blocked
+
+
+def occluded_triangles(scene, o, d, t_max, cfg) -> torch.Tensor:
+    """Any-hit over the triangle mesh only."""
+    return _triangles_occluded(scene, o, d, t_max, cfg)
+
+
+def occluded(scene, o, d, t_max, cfg) -> torch.Tensor:
+    """Any-hit visibility query: True where something blocks strictly before
+    t_max (canSeeLight's family chain, main.cpp:198-218, as one OR).
+
+    Rays already blocked by a cheap family skip the kd walk (t_max=-1 kills
+    them at the root slab test); the OR is unchanged."""
+    blocked = occluded_families(scene, o, d, t_max, cfg)
+    t_tri = torch.where(blocked, -1.0, t_max)
+    return blocked | _triangles_occluded(scene, o, d, t_tri, cfg)

@@ -1,0 +1,113 @@
+"""Host-side mesh pipeline: OBJ loading, vertex joining, smooth normals.
+
+Counterpart of ``dod_raytracer_tpu.mesh`` (the reference's assimp import,
+``mesh.cpp:11-14``: Triangulate | JoinIdenticalVertices | GenSmoothNormals,
+and the per-face flattening of ``mesh.cpp:36-48``), numpy only:
+
+* ``load_obj``       — OBJ parser (v / vn / f, fan triangulation).
+* ``join_identical`` — exact-position vertex dedup.
+* ``smooth_normals`` — per-vertex average of adjacent unit face normals.
+* ``mesh_to_triangles`` — flatten to the renderer's (T, 3, 3) soup.
+
+The procedural dragon asset and the PLY reader belong to the next slice.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+_ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
+
+
+def load_obj(path: str):
+    """Parse an OBJ file -> (verts (V,3) f32, faces (F,3) i32, vn or None).
+
+    Supports ``v``, ``vn`` and ``f`` records; face vertices may be ``i``,
+    ``i/t``, ``i//n`` or ``i/t/n`` and may be negative (relative); polygons
+    are fan-triangulated (aiProcess_Triangulate equivalent).
+    """
+    verts, normals, faces, face_normals = [], [], [], []
+    with open(path, "r") as f:
+        for line in f:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append((float(parts[1]), float(parts[2]), float(parts[3])))
+            elif line.startswith("vn "):
+                parts = line.split()
+                normals.append((float(parts[1]), float(parts[2]), float(parts[3])))
+            elif line.startswith("f "):
+                idx = []
+                nidx = []
+                for p in line.split()[1:]:
+                    comps = p.split("/")
+                    vi = int(comps[0])
+                    idx.append(vi - 1 if vi > 0 else len(verts) + vi)
+                    if len(comps) >= 3 and comps[2]:
+                        ni = int(comps[2])
+                        nidx.append(ni - 1 if ni > 0 else len(normals) + ni)
+                for k in range(1, len(idx) - 1):  # fan triangulation
+                    faces.append((idx[0], idx[k], idx[k + 1]))
+                    if len(nidx) == len(idx):
+                        face_normals.append((nidx[0], nidx[k], nidx[k + 1]))
+    v = np.asarray(verts, np.float32)
+    fc = np.asarray(faces, np.int32)
+    vn = None
+    if normals and len(face_normals) == len(faces):
+        vn = np.asarray(normals, np.float32)[np.asarray(face_normals, np.int32)]  # (F,3,3)
+    return v, fc, vn
+
+
+def join_identical(verts: np.ndarray, faces: np.ndarray):
+    """Merge exactly-coincident vertices (aiProcess_JoinIdenticalVertices)."""
+    uniq, inverse = np.unique(verts, axis=0, return_inverse=True)
+    return uniq.astype(np.float32), inverse.astype(np.int32).reshape(-1)[faces]
+
+
+def smooth_normals(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Per-vertex smooth normals: normalize(sum of adjacent unit face
+    normals) — aiProcess_GenSmoothNormals at the default (all-smoothing)
+    angle.  Degenerate faces contribute zero."""
+    a = verts[faces[:, 0]]
+    b = verts[faces[:, 1]]
+    c = verts[faces[:, 2]]
+    fn = np.cross(b - a, c - a)
+    ln = np.linalg.norm(fn, axis=1, keepdims=True)
+    fn = np.divide(fn, ln, out=np.zeros_like(fn), where=ln > 0)
+    vn = np.zeros_like(verts)
+    for k in range(3):
+        np.add.at(vn, faces[:, k], fn)
+    ln = np.linalg.norm(vn, axis=1, keepdims=True)
+    vn = np.divide(vn, ln, out=np.zeros_like(vn), where=ln > 0)
+    return vn.astype(np.float32)
+
+
+def mesh_to_triangles(verts: np.ndarray, faces: np.ndarray, vertex_normals: np.ndarray):
+    """Flatten to the renderer's soup: ((T,3,3) verts, (T,3,3) normals),
+    one row per face corner in A/B/C order (triangle.cpp:262-292)."""
+    tv = verts[faces]  # (T, 3, 3)
+    tn = vertex_normals[faces]
+    return tv.astype(np.float32), tn.astype(np.float32)
+
+
+def load_mesh(path: str):
+    """assimp-equivalent pipeline for one OBJ file."""
+    if not path.lower().endswith(".obj"):
+        raise NotImplementedError(f"{path}: only OBJ meshes are ported so far")
+    verts, faces, vn_per_face = load_obj(path)
+    if vn_per_face is not None:
+        return verts[faces].astype(np.float32), vn_per_face.astype(np.float32)
+    verts, faces = join_identical(verts, faces)
+    vn = smooth_normals(verts, faces)
+    return mesh_to_triangles(verts, faces, vn)
+
+
+def load_mesh_asset(name: str):
+    """Named asset loader: 'teapot' (the committed reference mesh) or an
+    OBJ path.  The 'dragon' asset is the next slice's."""
+    if name == "teapot":
+        return load_mesh(os.path.join(_ASSET_DIR, "teapot.obj"))
+    if name == "dragon":
+        raise NotImplementedError("the dragon asset is not ported yet")
+    return load_mesh(name)

@@ -1,0 +1,47 @@
+"""Batched ray-plane intersection.
+
+Counterpart of ``dod_raytracer_tpu.ops.plane``: the reference's vectorized
+plane test (``plane.cpp:27-139``),
+
+  t = ((p0 - O) . n) / (d . n)
+  valid = (|d . n| > eps) & (t > eps) & (t < clip)
+
+with the stored normal reported unflipped (plane.cpp:134) and ties kept by
+the lowest plane index.  Zero-normal padding planes fail the parallel test.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.math import safe_div
+from .ray import INF, FamilyHit
+
+
+def plane_candidate_t(point, normal, o, d, eps):
+    """All-pairs candidate t: (N, P), +inf for invalid pairs."""
+    denom = torch.sum(d[:, None, :] * normal[None, :, :], dim=-1)
+    num = torch.sum((point[None, :, :] - o[:, None, :]) * normal[None, :, :], dim=-1)
+    not_parallel = torch.abs(denom) > eps
+    t = safe_div(num, denom, not_parallel)
+    valid = not_parallel & (t > eps)
+    return torch.where(valid, t, INF)
+
+
+def intersect_planes(planes, o, d, t_max, eps) -> FamilyHit:
+    t_all = plane_candidate_t(planes.point, planes.normal, o, d, eps)  # (N, P)
+    idx = torch.argmin(t_all, dim=1).detach()
+    hit = torch.gather(t_all, 1, idx[:, None])[:, 0] < t_max
+
+    p_w = planes.point[idx]
+    n_w = planes.normal[idx]
+    denom = torch.sum(d * n_w, dim=-1)
+    num = torch.sum((p_w - o) * n_w, dim=-1)
+    t = safe_div(num, denom, hit)
+    t = torch.where(hit, t, INF)
+    return FamilyHit(t=t, normal=n_w, color=planes.color[idx])
+
+
+def occluded_planes(planes, o, d, t_max, eps) -> torch.Tensor:
+    t_all = plane_candidate_t(planes.point, planes.normal, o, d, eps)
+    return torch.any(t_all < t_max[:, None], dim=1)

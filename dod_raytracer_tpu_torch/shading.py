@@ -1,0 +1,124 @@
+"""Whitted shading: ambient + Lambert + Phong + shadows.
+
+Counterpart of ``dod_raytracer_tpu.shading`` (``getLightingFactor`` and its
+helpers, ``main.cpp:156-244``):
+
+  factor = 0.2                                      # shadeAmbientFactor :156-159
+         + sum over visible lights of
+             ( max(0, n . normalize(lp - p))        # shadeDiffuseFactor :161-166
+             + max(0, reflect(ldir, n) . pixdir)^7  # shadeSpecularFactor :173-180
+             ) * intensity / |lp - p|^2             # quadratic falloff :231-233
+
+Reference quirks kept: the specular term dots against the original
+un-normalized pixel direction at every bounce (main.cpp:328); glm's
+reflect(L, N) = L - 2 (N.L) N with L toward the light; shadow ray origin
+``hit + 0.01 * ldir`` (main.cpp:192).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .intersect import occluded
+from .utils.math import sqrt
+
+AMBIENT = 0.2  # main.cpp:158
+SPECULAR_POW = 7.0  # main.cpp:178
+SHADOW_OFFSET = 0.01  # main.cpp:192
+
+
+def _batch_lights(cfg, device) -> bool:
+    for knob in ("shadow_reverse", "sort_shadow"):
+        if getattr(cfg, knob, None):
+            raise NotImplementedError(f"{knob} is not ported yet")
+    batch = getattr(cfg, "shadow_batch_lights", None)
+    if batch is None:
+        batch = device.type == "cuda"
+    return batch
+
+
+def shadow_rays(scene, points, active=None, relevant=None):
+    """The flattened (L*N,) shadow wavefront: (o, d, t_max), light-major.
+
+    ``t_max`` is the distance to the light, or -1 for rays masked out by
+    ``active`` (N,) or by ``relevant`` (N, L): -1 makes every occlusion
+    test reject them at once.
+    """
+    lp = scene.lights.position  # (L, 3)
+    L, n = lp.shape[0], points.shape[0]
+    to_light = lp[:, None, :] - points[None, :, :]  # (L, N, 3)
+    dist = sqrt(torch.sum(to_light * to_light, dim=-1))  # (L, N)
+    ldir = to_light / torch.clamp_min(dist, 1e-30)[..., None]
+    o = points[None, :, :] + ldir * SHADOW_OFFSET
+    kill = torch.zeros((L, n), dtype=torch.bool, device=points.device)
+    if active is not None:
+        kill = kill | ~active[None, :]
+    if relevant is not None:
+        kill = kill | ~relevant.T
+    dist = torch.where(kill, -1.0, dist)
+    return o.reshape(L * n, 3), ldir.reshape(L * n, 3), dist.reshape(L * n)
+
+
+def light_visibility(scene, points, cfg, active=None, relevant=None) -> torch.Tensor:
+    """(N, L) bool — canSeeLight (main.cpp:182-219) for all rays x lights.
+
+    Two execution shapes with identical visibility bits (occlusion is
+    elementwise over rays): one any-hit query over the flattened (L*N,)
+    shadow wavefront (``shadow_batch_lights``), or L sequential N-ray
+    queries.  Pairs masked out by ``active`` or ``relevant`` report
+    *visible*; callers only mask pairs whose contribution is exactly zero.
+    """
+    if _batch_lights(cfg, points.device):
+        o, d, t = shadow_rays(scene, points, active, relevant)
+        blocked = occluded(scene, o, d, t, cfg).reshape(-1, points.shape[0])
+        return ~blocked.T
+
+    kill0 = torch.zeros(points.shape[:1], dtype=torch.bool, device=points.device)
+    if active is not None:
+        kill0 = kill0 | ~active
+    blocked = []
+    for li in range(scene.lights.position.shape[0]):
+        to_light = scene.lights.position[li][None, :] - points  # (N, 3)
+        dist = sqrt(torch.sum(to_light * to_light, dim=-1))
+        ldir = to_light / torch.clamp_min(dist, 1e-30)[:, None]
+        o = points + ldir * SHADOW_OFFSET
+        kill = kill0 if relevant is None else kill0 | ~relevant[:, li]
+        dist = torch.where(kill, -1.0, dist)
+        blocked.append(occluded(scene, o, ldir, dist, cfg))
+    return ~torch.stack(blocked, dim=1)
+
+
+def light_terms(scene, points, normals, pixel_dirs):
+    """Per (ray, light) shading terms: ((diffuse + specular) (N, L),
+    distance factor (N, L)).  A pair whose first term is 0 contributes
+    nothing, so it needs no shadow ray."""
+    lp = scene.lights.position  # (L, 3)
+    li = scene.lights.intensity  # (L,)
+    to_light = lp[None, :, :] - points[:, None, :]  # (N, L, 3)
+    dist_sq = torch.clamp_min(torch.sum(to_light * to_light, dim=-1), 1e-30)
+    ldir = to_light * torch.rsqrt(dist_sq)[..., None]
+    dist_factor = li[None, :] / dist_sq  # main.cpp:233
+
+    n_dot_l = torch.sum(normals[:, None, :] * ldir, dim=-1)
+    diffuse = torch.clamp_min(n_dot_l, 0.0)  # :164
+    refl = ldir - 2.0 * n_dot_l[..., None] * normals[:, None, :]  # glm::reflect(ldir, n)
+    spec_dot = torch.clamp_min(torch.sum(refl * pixel_dirs[:, None, :], dim=-1), 0.0)  # :178
+    specular = spec_dot ** SPECULAR_POW
+    return diffuse + specular, dist_factor
+
+
+def lighting_factor(scene, points, normals, pixel_dirs, cfg, active=None) -> torch.Tensor:
+    """(N,) scalar lighting factor (getLightingFactor, main.cpp:221-244).
+
+    ``pixel_dirs`` is the un-normalized primary direction (parity quirk).
+    ``active`` masks rays whose shadow queries are skipped (their
+    visibility is forced False).  Pairs with exactly zero Lambert + Phong
+    term launch no shadow ray: their visibility is multiplied by zero.
+    """
+    shade, dist_factor = light_terms(scene, points, normals, pixel_dirs)
+    relevant = shade.detach() > 0.0  # (N, L)
+    visible = light_visibility(scene, points, cfg, active, relevant)  # (N, L)
+    if active is not None:
+        visible = visible & active[:, None]
+    per_light = torch.where(visible, shade * dist_factor, 0.0)
+    return AMBIENT + torch.sum(per_light, dim=-1)
