@@ -5,26 +5,61 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each printed with its elapsed seconds as it ends:
   1. the card (nvidia-smi name and power limit) and the torch version;
-  2. build of the CUDA kd-traversal kernel from csrc/ with plain nvcc;
+  2. build of the CUDA kernels from csrc/ with plain nvcc, one process per
+     source, all at once: packet_traverse.cu (packet kernel) and
+     kd_walk.cu (mega and forest walks);
   3. the reference scene from config.ini (1920x1080): 16 spheres, 6 walls,
      the cylinder, the teapot (6,320 triangles), 9 lights, 10 bounces, with
      the kd-tree shape MaxPrims=96, leaf_chunk_lanes=48;
-  4. one warm and one timed 1920x1080 frame through ``render_image``;
-     the kernel's launch counts are set to 0 just before the timed frame
-     and read just after; the image must be finite, of the right shape and
-     not black; a 64x32 frame on the card must match the CPU path;
-  5. parity of the kernel against the plain walk and against brute force,
-     on the triangle queries at bounce 0 and a later bounce of the ray tile
-     whose primary rays hit the teapot most, and on the shadow rays of
-     those bounces;
-  6. the kernel's time per launch at the main path's shapes, the plain
-     walk's time on the same inputs, and the least time the card could
-     take (bytes over 3.35 TB/s or the edge-sign FMAs of the non-empty
-     slots of the tested blocks over 67 TFLOP/s, whichever is larger),
-     printed as one ``kernels`` JSON line;
-  7. one profiled frame: device time by kernel, the traversal kernel's
-     share of it, and the device's idle share, as one ``profile`` line;
-  8. the result line ``{"ok": true, "device": {...}}``.
+  4. one warm and one timed 1920x1080 frame through ``render_image``
+     (backend 'auto': the packet kernel); every launch count is set to 0
+     just before the timed frame and read just after; the image must be
+     finite, of the right shape and not black; a 64x32 frame on the card
+     must match the CPU path;
+  5. parity of the packet and mega kernels against the plain walk and
+     brute force, on the triangle queries at bounce 0 and a later bounce of
+     the ray tile whose primary rays hit the teapot most, and on the shadow
+     rays of those bounces; the mega kernel also against the packet kernel;
+  6. the packet and mega kernels' time per launch at the main path's
+     shapes, the plain walk's time on the same inputs, and the least time
+     the card could take (see ``kernel_entry``: the bytes these inputs make
+     the kernel read over 3.35 TB/s, or the fp32 operations of its leaf
+     tests over 67 TFLOP/s, whichever is larger);
+  7. the teapot frame with traversal_backend='mega' (the mega kernel),
+     timed once, against the frame of phase 4: u8 channels off by > 1;
+  8. the flagship scene of bench.py: the procedural dragon (869,952
+     triangles) at 1920x1080, MaxPrims=192, leaf_chunk_lanes=48, seed 0,
+     built on the card; its load and build times and tree shape;
+  9. the flagship frame (backend 'auto': the packet kernel), one warm and
+     one timed frame, with the counts set to 0 around the timed one;
+ 10. the same frame with traversal_backend='forest' (the forest kernel),
+     timed once, against the frame of phase 9;
+ 11. parity of the packet and forest kernels against the plain forest
+     walk, the plain walk and brute force on 65,536 rays of the dragon tile
+     with the most bounce-0 dragon hits (brute force on 4,096 of them), at
+     bounce 0 and bounce 3 and on their shadow rays, and of the forest
+     kernel against the packet kernel;
+ 12. the packet and forest kernels' times, plain times and bounds at the
+     flagship's shapes (262,144 closest-hit and 2,359,296 any-hit rays of
+     one tile); then the ``kernels`` JSON line;
+ 13. one profiled flagship frame: device time by kernel, the traversal
+     kernels' share of it, and the device's idle share, as one ``profile``
+     line;
+ 14. the result line ``{"ok": true, "device": {...}}``.
+
+Parity rules.  Against the plain walks, and between kernels, the outputs
+must be equal bit for bit: the plain walks compute the kernels' leaf test
+(Plücker edge signs on block_g, then the Möller–Trumbore t on block_tris,
+every operation in the kernels' order) and their visit order, so hit masks
+are equal, and t and prims are equal wherever both hit.  Brute force is a
+different function, Möller–Trumbore with its barycentric test over every
+triangle (after tests/test_packet.py): there a prim may differ at a tie
+(both candidates' t agree to rtol 1e-5), a hit mask or prim may differ on a
+ray that meets the kernel's or the brute force's triangle within EDGE_EPS
+(barycentric) of an edge, on at most EDGE_SHARE of the rays, where the two
+inside tests disagree on a shared edge; at most 0.001% of the rays may
+differ in their hit mask otherwise, and t agrees to rtol 1e-3 where both
+hit and the ray is not excused.
 
 Any failed check raises and the script exits non-zero without a result
 line; so does a run without a CUDA device or without the package beside it.
@@ -40,16 +75,28 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-REPLACES = "dod_raytracer_tpu/ops/pallas/packet_kernel.py:498"
-SOURCE = "dod_raytracer_tpu_torch/csrc/packet_traverse.cu"
+KERNELS = {  # kernel -> (source in the repo, the TPU kernel it replaces)
+    "packet_traverse": ("dod_raytracer_tpu_torch/csrc/packet_traverse.cu",
+                        "dod_raytracer_tpu/ops/pallas/packet_kernel.py:498"),
+    "mega_walk": ("dod_raytracer_tpu_torch/csrc/kd_walk.cu",
+                  "dod_raytracer_tpu/ops/pallas/traverse_kernel.py:289"),
+    "forest_walk": ("dod_raytracer_tpu_torch/csrc/kd_walk.cu",
+                    "dod_raytracer_tpu/ops/pallas/forest_kernel.py:343"),
+}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 LATER_BOUNCE = 3
 SHADOW_POINTS = 65536  # hit points per parity bounce whose shadow rays are checked
-MASK_AGREEMENT = 0.99999
-T_RTOL = 1e-3  # Plücker vs Möller–Trumbore rounding (plucker_kernel.py:18-21)
-TIE_RTOL = 1e-5  # a prim may differ only at a tie (tests/test_packet.py:49-63)
+DRAGON_PARITY_RAYS = 65536  # rays of the dragon parity window
+DRAGON_BRUTE_RAYS = 4096  # of those, checked by brute force over 869,952 triangles
+# against brute force only (the plain walks and the kernels must agree bit for bit)
+MASK_AGREEMENT = 0.99999  # hit masks, away from ties and edges
+T_RTOL = 1e-3  # t where both hit (tests/test_packet.py)
+TIE_RTOL = 1e-5  # a prim may differ at a tie (tests/test_packet.py:49-63)
+EDGE_EPS = 1e-3  # or on a ray that meets a triangle this close to an edge (barycentric units),
+EDGE_SHARE = 1e-3  # on at most this share of the rays (rounded up)
 RAY_CHUNK = 32768  # rays per brute-force call (bounds its (rays, 2048, 3) temporaries)
+U8_TOLERANCE = 0.01  # golden tolerance: fraction of u8 channels off by > 1
 
 _T0 = time.perf_counter()
 
@@ -85,13 +132,19 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def wall_ms(torch, fn) -> float:
-    """Milliseconds of one call (host clock, synchronized on both sides)."""
+def wall_s(torch, fn):
+    """(seconds, result) of one call, host clock, synchronized on both sides."""
     torch.cuda.synchronize()
     t = time.perf_counter()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t) * 1e3
+    return time.perf_counter() - t, out
+
+
+def u8_off(quantize_u8, a, b) -> float:
+    """Fraction of u8 channels of two frames that differ by more than 1."""
+    diff = quantize_u8(a).astype(int) - quantize_u8(b).astype(int)
+    return float((abs(diff) > 1).mean())
 
 
 def main(device: str = "cuda") -> int:
@@ -103,8 +156,9 @@ def main(device: str = "cuda") -> int:
 
     from dod_raytracer_tpu_torch import Config, default_scene, quantize_u8, render_image
     from dod_raytracer_tpu_torch.intersect import closest_families, closest_hit, occluded_families
-    from dod_raytracer_tpu_torch.ops import packet
-    from dod_raytracer_tpu_torch.ops.traverse import _stack_depth, traverse_plain
+    from dod_raytracer_tpu_torch.ops import _cuda, forest, mega, packet
+    from dod_raytracer_tpu_torch.ops.traverse import (_stack_depth, traverse_forest_plain,
+                                                      traverse_plain)
     from dod_raytracer_tpu_torch.ops.triangle import (brute_force_closest, mt_single,
                                                       occluded_triangles_brute)
     from dod_raytracer_tpu_torch.render import frame_rays
@@ -112,6 +166,34 @@ def main(device: str = "cuda") -> int:
     from dod_raytracer_tpu_torch.utils.math import reflect
 
     dev = torch.device(device)
+    walks = {  # kernel -> (its wrapper's module, the wrapper, its plain walk)
+        "packet_traverse": (packet, packet.packet_traverse, traverse_plain),
+        "mega_walk": (mega, mega.mega_traverse, traverse_plain),
+        "forest_walk": (forest, forest.forest_traverse, traverse_forest_plain),
+    }
+
+    def reset_counts():
+        for module, _, _ in walks.values():
+            module.reset_launches()
+
+    def read_counts():
+        return {k: dict(module.launches) for k, (module, _, _) in walks.items()}
+
+    def frame(scene, cfg, path: str, only: str):
+        """One timed frame of the main path ``path``: every count set to 0
+        just before it and read just after; only kernel ``only`` may have
+        launched, in both modes."""
+        reset_counts()
+        seconds, img = wall_s(torch, lambda: render_image(scene, cfg, device=dev))
+        counts = read_counts()
+        check(counts[only]["closest"] > 0 and counts[only]["any_hit"] > 0,
+              f"{path}: {only} not launched in both modes: {counts}")
+        check(all(sum(c.values()) == 0 for k, c in counts.items() if k != only),
+              f"{path}: another kernel launched: {counts}")
+        check(tuple(img.shape) == (cfg.Height, cfg.Width, 3), f"{path}: frame shape {tuple(img.shape)}")
+        check(bool(torch.isfinite(img).all()), f"{path}: frame has non-finite values")
+        check(float(img.mean()) > 0.01, f"{path}: frame is black (mean {float(img.mean())})")
+        return seconds, img, counts[only]
 
     # ---- 1. the card ----
     card = card_line()
@@ -119,15 +201,20 @@ def main(device: str = "cuda") -> int:
     log(f"phase 1 card: {torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s), "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # ---- 2. kernel build ----
-    built = packet.build(force=True)
-    for line in built["log"].splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
-            print("  ptxas:", line.strip(), flush=True)
-    packet._library()
-    log(f"phase 2 build: nvcc {built['seconds']:.2f} s -> {os.path.relpath(built['path'], ROOT)}")
+    # ---- 2. kernel builds, in parallel ----
+    t = time.perf_counter()
+    builds = _cuda.build_all(["packet_traverse", "kd_walk"], force=True)
+    for b in builds:
+        for line in b["log"].splitlines():
+            if "registers" in line or "spill" in line or "stack frame" in line:
+                print(f"  ptxas {b['name']}:", line.strip(), flush=True)
+    packet._fn()
+    mega._fn()
+    log("phase 2 build: " + ", ".join(f"{b['name']}.cu nvcc {b['seconds']:.2f} s -> "
+                                      f"{os.path.relpath(b['path'], ROOT)}" for b in builds)
+        + f"; {time.perf_counter() - t:.2f} s wall")
 
-    # ---- 3. scene ----
+    # ---- 3. teapot scene ----
     t = time.perf_counter()
     cfg = Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48, ray_tile=0)
     scene = default_scene(seed=0, cfg=cfg, mesh="teapot").build(cfg, device=dev)
@@ -138,23 +225,10 @@ def main(device: str = "cuda") -> int:
         f"{scene.n_spheres} spheres, {scene.n_planes} planes, {scene.n_cylinders} cylinder, "
         f"{scene.n_lights} lights, depth {cfg.recursion_depth}, built in {time.perf_counter() - t:.2f} s")
 
-    # ---- 4. frames ----
-    t = time.perf_counter()
-    render_image(scene, cfg, device=dev)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t
-    packet.reset_launches()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    img = render_image(scene, cfg, device=dev)
-    torch.cuda.synchronize()
-    frame_s = time.perf_counter() - t
-    counts = dict(packet.launches)
-    check(counts["closest"] > 0 and counts["any_hit"] > 0, f"kernel not launched on the main path: {counts}")
-    check(tuple(img.shape) == (cfg.Height, cfg.Width, 3), f"frame shape {tuple(img.shape)}")
-    check(bool(torch.isfinite(img).all()), "frame has non-finite values")
+    # ---- 4. teapot frames ----
+    warm_s, _ = wall_s(torch, lambda: render_image(scene, cfg, device=dev))
+    frame_s, img, counts = frame(scene, cfg, "teapot frame", "packet_traverse")
     mean = float(img.mean())
-    check(mean > 0.01, f"frame is black (mean {mean})")
     pixels = cfg.Width * cfg.Height
     log(f"phase 4 frame: warm {warm_s:.3f} s, timed {frame_s:.3f} s, {pixels / frame_s:.0f} primary rays/s, "
         f"mean {mean:.4f}, launches {counts}")
@@ -167,154 +241,377 @@ def main(device: str = "cuda") -> int:
     img_cpu = render_image(default_scene(seed=0, cfg=small, mesh="teapot").build(small, device="cpu"),
                            small, device="cpu")
     far = float((img_gpu.cpu() - img_cpu).abs().gt(2e-3).float().mean())
-    u8 = (quantize_u8(img_gpu).astype(int) - quantize_u8(img_cpu).astype(int))
-    u8_off = float((abs(u8) > 1).mean())
-    check(u8_off < 0.01, f"64x32 frame: {u8_off:.4%} of u8 channels differ by more than 1 from the CPU path")
+    small_off = u8_off(quantize_u8, img_gpu, img_cpu)
+    check(small_off < U8_TOLERANCE,
+          f"64x32 frame: {small_off:.4%} of u8 channels differ by more than 1 from the CPU path")
     log(f"phase 4 small frame vs CPU path: {far:.4%} of channels off by > 2e-3, "
-        f"{u8_off:.4%} of u8 channels off by > 1")
+        f"{small_off:.4%} of u8 channels off by > 1")
 
-    # ---- 5. parity ----
-    depth = _stack_depth(kd, cfg)
-    verts = scene.triangles.verts
+    # ---- parity helpers (phases 5 and 11) ----
+    def allowed(n):
+        return math.floor(n * (1.0 - MASK_AGREEMENT))
 
-    def brute_closest(o, d):
+    def edge_allowed(n):
+        return math.ceil(n * EDGE_SHARE)
+
+    def brute_closest(verts, o, d):
         parts = [brute_force_closest(verts, o[s:s + RAY_CHUNK], d[s:s + RAY_CHUNK])
                  for s in range(0, o.shape[0], RAY_CHUNK)]
         return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
-    def brute_any(o, d, tm):
+    def brute_any(verts, o, d, tm):
         return torch.cat([occluded_triangles_brute(verts, o[s:s + RAY_CHUNK], d[s:s + RAY_CHUNK],
                                                    tm[s:s + RAY_CHUNK])
                           for s in range(0, o.shape[0], RAY_CHUNK)])
 
-    def mt_t_of(prim, o, d):
+    def mt_t_of(verts, prim, o, d):
         tri = verts[prim.long()]
         return mt_single(tri, o, d, torch.ones(o.shape[0], dtype=torch.bool, device=dev))[0]
 
-    def allowed(n):
-        return math.floor(n * (1.0 - MASK_AGREEMENT))
+    def closest_refs(kd, verts, depth, o, d, tt, plains, n_brute):
+        """Reference (t, prim, hit) of a closest-hit query: each plain walk
+        on all rays, brute force on the first n_brute."""
+        refs = {}
+        for name, walk in plains.items():
+            tp, pp, fp = walk(kd, o, d, tt, depth, False)
+            refs[name] = (tp, pp, fp & (tp < tt), o.shape[0])
+        tb, pb = brute_closest(verts, o[:n_brute], d[:n_brute])
+        refs["brute"] = (tb, pb, tb < tt[:n_brute], n_brute)
+        return refs
 
-    def check_closest(label, o, d, tt):
-        tk, pk, fk = packet.packet_traverse(kd, o, d, tt, depth, False)
-        tp, pp, fp = traverse_plain(kd, o, d, tt, depth, False)
-        tb, pb = brute_closest(o, d)
-        hk = fk & (tk < tt)
+    def edge_distance(verts, prim, o, d):
+        """Barycentric distance of each ray's crossing of triangle ``prim``
+        from the triangle's nearest edge (Möller–Trumbore u, v, 1-u-v)."""
+        _, u, v = mt_single(verts[prim.long()], o, d, torch.ones(o.shape[0], dtype=torch.bool, device=dev))
+        return torch.minimum(torch.minimum(u.abs(), v.abs()), (1.0 - u - v).abs())
+
+    def at_edge(verts, o, d, k_hit, k_prim, r_hit, r_prim):
+        """Rays whose kernel or brute-force triangle is met within EDGE_EPS
+        of an edge: there the kernels' Plücker edge signs and brute force's
+        barycentric test can disagree on which triangle of a shared edge a
+        ray meets, or whether it meets one."""
+        near = torch.zeros(o.shape[0], dtype=torch.bool, device=dev)
+        for hit, prim in ((k_hit, k_prim), (r_hit, r_prim)):
+            if prim is not None and bool(hit.any()):
+                near[hit] |= edge_distance(verts, prim[hit], o[hit], d[hit]) < EDGE_EPS
+        return near
+
+    def check_closest(label, kname, out, refs, verts, o, d, tt):
+        """The kernel's closest hits against each reference: bit for bit
+        against the plain walks and the other kernels, under the brute-force
+        rule (module docstring) against ``brute``."""
+        tk, pk, fk = out
+        hk_all = fk & (tk < tt)
         res = {}
-        for name, tr, pr, hr in (("plain", tp, pp, fp & (tp < tt)), ("brute", tb, pb, tb < tt)):
-            n = o.shape[0]
-            mism = int((hk != hr).sum())
+        for name, (tr, pr, hr, n) in refs.items():
+            hk, tkn, pkn, on, dn = hk_all[:n], tk[:n], pk[:n], o[:n], d[:n]
             both = hk & hr
-            t_bad = int((both & ((tk - tr).abs() > T_RTOL * tr.abs())).sum())
-            flip = both & (pk != pr)
-            nflip = int(flip.sum())
-            bad_flip = 0
-            if nflip:
-                ta, tb2 = mt_t_of(pk[flip], o[flip], d[flip]), mt_t_of(pr[flip], o[flip], d[flip])
-                bad_flip = int(((ta - tb2).abs() > TIE_RTOL * tb2.abs()).sum())
-            err = float((tk - tr)[both].abs().max()) if bool(both.any()) else 0.0
-            res[name] = dict(rays=n, hits=int(hr.sum()), mask_mismatch=mism, t_out_of_rtol=t_bad,
-                             prim_flips=nflip, bad_flips=bad_flip, max_abs_t_err=err)
-            check(mism <= allowed(n) and t_bad == 0 and bad_flip == 0,
-                  f"closest parity {label} vs {name}: {res[name]}")
-        log(f"phase 5 parity closest {label}: {json.dumps(res)}")
+            flip = both & (pkn != pr)
+            r = dict(rays=n, hits=int(hr.sum()), mask_mismatch=int((hk != hr).sum()),
+                     prim_flips=int(flip.sum()), t_not_exact=int((both & (tkn != tr)).sum()),
+                     max_abs_t_err=float((tkn - tr)[both].abs().max()) if bool(both.any()) else 0.0)
+            r["bits_equal"] = r["mask_mismatch"] == 0 and r["prim_flips"] == 0 and r["t_not_exact"] == 0
+            ok = r["bits_equal"]
+            if name == "brute":
+                tie = torch.zeros_like(flip)
+                if bool(flip.any()):
+                    ta, tb2 = mt_t_of(verts, pkn[flip], on[flip], dn[flip]), mt_t_of(verts, pr[flip], on[flip], dn[flip])
+                    tie[flip] = (ta - tb2).abs() <= TIE_RTOL * tb2.abs()
+                differ = (hk != hr) | (flip & ~tie)
+                edge = differ & at_edge(verts, on, dn, differ & hk, pkn, differ & hr, pr)
+                odd = differ & ~edge
+                t_bad = both & ~tie & ~edge & ((tkn - tr).abs() > T_RTOL * tr.abs())
+                r.update(ties=int(tie.sum()), at_edge=int(edge.sum()),
+                         unexplained_mask=int((odd & (hk != hr)).sum()), unexplained_flips=int((odd & flip).sum()),
+                         t_out_of_rtol=int(t_bad.sum()))
+                ok = (r["at_edge"] <= edge_allowed(n) and r["unexplained_mask"] <= allowed(n)
+                      and r["unexplained_flips"] == 0 and r["t_out_of_rtol"] == 0)
+            res[name] = r
+            check(ok, f"{kname} closest parity {label} vs {name}: {r}")
+        log(f"phase parity {kname} closest {label}: {json.dumps(res)}")
         return res
 
-    def check_any(label, o, d, tt):
-        _, _, fk = packet.packet_traverse(kd, o, d, tt, depth, True)
-        _, _, fp = traverse_plain(kd, o, d, tt, depth, True)
-        fb = brute_any(o, d, tt)
+    def check_any(label, kname, out, refs, verts, o, d):
+        """The kernel's hit bits against each reference: ``refs[name]`` is
+        (prim or None, bits, n) for the first n rays.  Bit for bit against
+        the plain walks and the other kernels; against ``brute``, the
+        mismatches must be at an edge (see ``at_edge``), on at most
+        EDGE_SHARE of the rays, but for the 0.001% allowance."""
+        _, pk, fk = out
         res = {}
-        for name, fr in (("plain", fp), ("brute", fb)):
-            n = o.shape[0]
-            mism = int((fk != fr).sum())
-            res[name] = dict(rays=n, live=int((tt > 0).sum()), occluded=int(fr.sum()), mask_mismatch=mism)
-            check(mism <= allowed(n), f"any-hit parity {label} vs {name}: {res[name]}")
-        log(f"phase 5 parity any-hit {label}: {json.dumps(res)}")
+        for name, (pr, fr, n) in refs.items():
+            on, dn = o[:n], d[:n]
+            differ = fk[:n] != fr
+            r = dict(rays=n, occluded=int(fr.sum()), mask_mismatch=int(differ.sum()))
+            r["bits_equal"] = r["mask_mismatch"] == 0
+            ok = r["bits_equal"]
+            if name == "brute":
+                if pr is None and bool(differ.any()):  # find the occluder brute force saw
+                    pr = torch.full((n,), -1, dtype=torch.int32, device=dev)
+                    pr[differ] = brute_closest(verts, on[differ], dn[differ])[1].to(torch.int32)
+                edge = differ & at_edge(verts, on, dn, differ & fk[:n], pk[:n], differ & fr, pr)
+                r.update(at_edge=int(edge.sum()), unexplained=int((differ & ~edge).sum()))
+                ok = r["at_edge"] <= edge_allowed(n) and r["unexplained"] <= allowed(n)
+            res[name] = r
+            check(ok, f"{kname} any-hit parity {label} vs {name}: {r}")
+        log(f"phase parity {kname} any-hit {label}: {json.dumps(res)}")
         return res
 
-    # the ray tile whose primary rays hit the teapot most often
-    o_all, d_all, raw_all, _, tile = frame_rays(cfg, dev)
-    t_inf = torch.full((o_all.shape[0],), float("inf"), device=dev)
-    t_tri = torch.minimum(closest_families(scene, o_all, d_all, cfg, t_inf).t, t_inf)
-    tk, _, fk = packet.packet_traverse(kd, o_all, d_all, t_tri, depth, False)
-    start = int((fk & (tk < t_tri)).reshape(-1, tile).sum(1).argmax()) * tile
-    o, d, raw = (x[start:start + tile] for x in (o_all, d_all, raw_all))
-    log(f"phase 5 parity tile: rays [{start}, {start + tile}) of {o_all.shape[0]}")
-    active = torch.ones(tile, dtype=torch.bool, device=dev)
-    parity = {}
-    timing_inputs = {}
-    for k in range(LATER_BOUNCE + 1):
-        t_max = torch.where(active, float("inf"), -1.0)
-        t_tri = torch.minimum(closest_families(scene, o, d, cfg, t_max).t, t_max)
-        if k in (0, LATER_BOUNCE):
-            parity[f"closest_b{k}"] = check_closest(f"bounce {k}", o, d, t_tri)
-        if k == 0:
-            timing_inputs["closest"] = (o, d, t_tri)
-        hit = closest_hit(scene, o, d, cfg, t_max=t_max)
-        active = active & hit.mask
-        if k in (0, LATER_BOUNCE):
-            n_pts = SHADOW_POINTS if k else tile  # bounce 0: the whole tile, as the main path batches it
-            shade, _ = light_terms(scene, hit.point[:n_pts], hit.normal[:n_pts], raw[:n_pts])
-            so, sd, st = shadow_rays(scene, hit.point[:n_pts], active[:n_pts], shade > 0.0)
-            st = torch.where(occluded_families(scene, so, sd, st, cfg), -1.0, st)
-            if k == 0:
-                timing_inputs["any_hit"] = (so, sd, st)
-                n_sub = min(SHADOW_POINTS, tile)
-                sel = torch.cat([torch.arange(li * tile, li * tile + n_sub, device=dev)
-                                 for li in range(scene.lights.position.shape[0])])
-                so, sd, st = so[sel], sd[sel], st[sel]
-            parity[f"any_b{k}"] = check_any(f"bounce {k}", so.contiguous(), sd.contiguous(), st.contiguous())
-        d_new = reflect(d, hit.normal)
-        o = torch.where(active[:, None], hit.point + d_new * cfg.Epsilon, o)
-        d = torch.where(active[:, None], d_new, d)
+    def plain_err(par, mode, plains):
+        """A kernel's ``max_abs_err`` against its plain versions over both
+        parity bounces: |t| where both hit (closest), hit bits (any-hit)."""
+        key = "closest" if mode == "closest" else "any"
+        return max(par[f"{key}_b{b}"][name]["max_abs_t_err"] if mode == "closest"
+                   else float(par[f"{key}_b{b}"][name]["mask_mismatch"] > 0)
+                   for b in (0, LATER_BOUNCE) for name in plains)
 
-    # ---- 6. kernel times and bounds ----
-    S = kd.block_orig.shape[1]
-    table_bytes = (kd.node_flag.shape[0] * 20 + 24 + kd.block_aabb.numel() * 4
-                   + kd.block_g.numel() * 4 + kd.block_tris.numel() * 4 + kd.block_orig.numel() * 4)
-    kernels = []
-    for mode in ("closest", "any_hit"):
+    def best_window(scene, cfg, walk, depth, width=None):
+        """Frame rays, the ray tile, and the start of the window of ``width``
+        rays (default: one tile) whose primary rays hit the mesh most often."""
+        o_all, d_all, raw_all, _, tile = frame_rays(cfg, dev)
+        width = width or tile
+        t_inf = torch.full((o_all.shape[0],), float("inf"), device=dev)
+        t_tri = torch.minimum(closest_families(scene, o_all, d_all, cfg, t_inf).t, t_inf)
+        tk, _, fk = walk(scene.kd, o_all, d_all, t_tri, depth, False)
+        start = int((fk & (tk < t_tri)).reshape(-1, width).sum(1).argmax()) * width
+        return o_all, d_all, raw_all, tile, start
+
+    def bounces(scene, cfg, o, d, raw, wanted, n_pts):
+        """Walk the bounces of a ray window as render_rays does; for each
+        bounce in ``wanted`` yield (k, closest-hit query (o, d, t_tri),
+        shadow query (so, sd, st) of the first n_pts hit points)."""
+        active = torch.ones(o.shape[0], dtype=torch.bool, device=dev)
+        for k in range(max(wanted) + 1):
+            t_max = torch.where(active, float("inf"), -1.0)
+            t_tri = torch.minimum(closest_families(scene, o, d, cfg, t_max).t, t_max)
+            hit = closest_hit(scene, o, d, cfg, t_max=t_max)
+            active = active & hit.mask
+            if k in wanted:
+                shade, _ = light_terms(scene, hit.point[:n_pts], hit.normal[:n_pts], raw[:n_pts])
+                so, sd, st = shadow_rays(scene, hit.point[:n_pts], active[:n_pts], shade > 0.0)
+                st = torch.where(occluded_families(scene, so, sd, st, cfg), -1.0, st)
+                yield k, (o, d, t_tri), (so.contiguous(), sd.contiguous(), st.contiguous())
+            d_new = reflect(d, hit.normal)
+            o = torch.where(active[:, None], hit.point + d_new * cfg.Epsilon, o)
+            d = torch.where(active[:, None], d_new, d)
+
+    def kernel_entry(name, mode, kd, inputs, depth, launches, err, nodes_bytes, extra):
+        """Time one kernel at the main path's shapes, beside its plain
+        version and its bound -> one entry of the ``kernels`` line.
+
+        The bound is the larger of two times, both from what these inputs
+        make the kernel do, counted by its measurement-only build (``stats``
+        per ray, ``touched`` marks per block and slot):
+          * bytes over 3.35 TB/s: each ray's o, d, t_max read and t, prim,
+            found written once; the node tables and world bounds whole
+            (``nodes_bytes``, under 0.1% of the total); block_aabb of the
+            blocks whose AABB was read (24 bytes), rows 0-5 of block_g's
+            edge sections for the non-empty slots of the blocks edge-tested
+            (18 floats), block_tris of the slots whose distance was computed
+            (9 floats), and block_orig of the distinct triangles returned;
+          * fp32 operations over 67 TFLOP/s: 33 per edge-sign test of a
+            non-empty slot (18 products, 15 sums) and 33 per
+            Möller–Trumbore distance.
+        """
         any_hit = mode == "any_hit"
-        ko, kdir, kt = (x.contiguous() for x in timing_inputs[mode])
+        ko, kdir, kt = inputs
         n = ko.shape[0]
-        ms = time_ms(torch, lambda: packet.packet_traverse(kd, ko, kdir, kt, depth, any_hit), 20)
-        plain_ms = wall_ms(torch, lambda: traverse_plain(kd, ko, kdir, kt, depth, any_hit))
-        # a measurement-only build of the kernel counts the work of these inputs
-        stats = torch.zeros((n, 3), dtype=torch.int32, device=dev)
-        packet.packet_traverse(kd, ko, kdir, kt, depth, any_hit, stats=stats)
-        node_steps, blocks, slots = (int(x) for x in stats.sum(0, dtype=torch.int64))
-        nbytes = n * (12 + 12 + 4) + n * 12 + table_bytes  # o, d, t_max in; t, prim, found out
-        flops = slots * 18 * 2  # edge-sign FMAs of the non-empty slots of the blocks that pass their AABB
+        _, wrapper, plain = walks[name]
+        ms = time_ms(torch, lambda: wrapper(kd, ko, kdir, kt, depth, any_hit), 20)
+        plain_ms = wall_s(torch, lambda: plain(kd, ko, kdir, kt, depth, any_hit))[0] * 1e3
+        B, S = kd.block_orig.shape
+        stats = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+        touched = torch.zeros((B, 2 + S), dtype=torch.int32, device=dev)
+        _, prim, found = wrapper(kd, ko, kdir, kt, depth, any_hit, stats=stats, touched=touched)
+        node_steps, blocks, slots, mt_slots = (int(x) for x in stats.sum(0, dtype=torch.int64))
+        aabb_blocks = int(touched[:, 0].sum(dtype=torch.int64))
+        edge_blocks = touched[:, 1] > 0
+        g_slots = int((kd.block_orig[edge_blocks] >= 0).sum())
+        tri_slots = int(touched[:, 2:].sum(dtype=torch.int64))
+        winners = int(torch.unique(prim[found]).numel())
+        nbytes = (n * (12 + 12 + 4) + n * 12 + nodes_bytes + 24 + aabb_blocks * 24 + g_slots * 18 * 4
+                  + tri_slots * 9 * 4 + winners * 4)
+        flops = (slots + mt_slots) * 33
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOPS_PER_S * 1e3
-        key = "closest_b0" if mode == "closest" else "any_b0"
-        if mode == "closest":
-            err = parity[key]["plain"]["max_abs_t_err"]
-        else:
-            err = float(parity[key]["plain"]["mask_mismatch"] > 0)
-        kernels.append(dict(
-            name=f"packet_traverse[{mode}]", route="cuda", source=SOURCE, replaces=REPLACES,
-            launches=counts[mode], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, rays=n, node_steps=node_steps, blocks_tested=blocks,
-            slots_tested=slots, padded_slots_of_tested_blocks=blocks * S,
-            parity={"bounce0": parity[key], f"bounce{LATER_BOUNCE}":
-                    parity["closest_b3" if mode == "closest" else "any_b3"]}))
-        log(f"phase 6 {mode}: {n} rays, {ms:.3f} ms/launch (plain {plain_ms:.1f} ms), "
-            f"bound {max(t_bytes, t_ops):.4f} ms ({kernels[-1]['bound_by']}), "
-            f"{node_steps} node steps, {blocks} blocks tested, {slots} non-empty slots tested "
-            f"of {blocks * S} slots in those blocks")
+        source, replaces = KERNELS[name]
+        entry = dict(name=f"{name}[{mode}]", route="cuda", source=source, replaces=replaces,
+                     launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     library_ms=None, rays=n, bytes=nbytes, operations=flops, node_steps=node_steps,
+                     blocks_tested=blocks, blocks_edge_tested=int(edge_blocks.sum()),
+                     slots_tested=slots, distances=mt_slots, block_g_slots_read=g_slots,
+                     block_tris_slots_read=tri_slots, **extra)
+        log(f"phase times {name}[{mode}]: {n} rays, {ms:.3f} ms/launch (plain {plain_ms:.1f} ms), "
+            f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}: {nbytes} bytes, {flops} operations), "
+            f"{node_steps} node steps, {blocks} blocks tested ({int(edge_blocks.sum())} distinct of {B}), "
+            f"{slots} non-empty slots edge-tested, {mt_slots} distances; read {g_slots} slots of block_g, "
+            f"{tri_slots} of block_tris, {aabb_blocks} block AABBs")
+        return entry
 
-    # ---- 7. where one frame's device time goes ----
+    # ---- 5. teapot parity: packet and mega ----
+    depth = _stack_depth(kd, cfg)
+    verts = scene.triangles.verts
+    plains = {"plain": traverse_plain}
+    o_all, d_all, raw_all, tile, start = best_window(scene, cfg, packet.packet_traverse, depth)
+    o, d, raw = (x[start:start + tile] for x in (o_all, d_all, raw_all))
+    log(f"phase 5 parity tile: rays [{start}, {start + tile}) of {o_all.shape[0]}")
+    parity = {"packet_traverse": {}, "mega_walk": {}}
+    timing_inputs = {}
+    for k, (qo, qd, qt), (so, sd, st) in bounces(scene, cfg, o, d, raw, (0, LATER_BOUNCE), tile):
+        refs = closest_refs(kd, verts, depth, qo, qd, qt, plains, qo.shape[0])
+        pk = packet.packet_traverse(kd, qo, qd, qt, depth, False)
+        parity["packet_traverse"][f"closest_b{k}"] = check_closest(
+            f"bounce {k}", "packet_traverse", pk, refs, verts, qo, qd, qt)
+        refs["packet"] = (*pk[:2], pk[2] & (pk[0] < qt), qo.shape[0])
+        parity["mega_walk"][f"closest_b{k}"] = check_closest(
+            f"bounce {k}", "mega_walk", mega.mega_traverse(kd, qo, qd, qt, depth, False), refs, verts,
+            qo, qd, qt)
+        if k == 0:
+            timing_inputs["closest"] = (qo, qd, qt)
+            timing_inputs["any_hit"] = (so, sd, st)
+        # the shadow rays of the first SHADOW_POINTS hit points, per light
+        n_sub = min(SHADOW_POINTS, tile)
+        sel = torch.cat([torch.arange(li * tile, li * tile + n_sub, device=dev)
+                         for li in range(scene.lights.position.shape[0])])
+        so, sd, st = so[sel].contiguous(), sd[sel].contiguous(), st[sel].contiguous()
+        arefs = {"plain": (*traverse_plain(kd, so, sd, st, depth, True)[1:], so.shape[0]),
+                 "brute": (None, brute_any(verts, so, sd, st), so.shape[0])}
+        pk = packet.packet_traverse(kd, so, sd, st, depth, True)
+        parity["packet_traverse"][f"any_b{k}"] = check_any(f"bounce {k}", "packet_traverse", pk, arefs,
+                                                           verts, so, sd)
+        arefs["packet"] = (*pk[1:], so.shape[0])
+        parity["mega_walk"][f"any_b{k}"] = check_any(
+            f"bounce {k}", "mega_walk", mega.mega_traverse(kd, so, sd, st, depth, True), arefs, verts, so, sd)
+    log("phase 5 parity done")
+
+    # ---- 6. teapot kernel times and bounds ----
+    kernels = []
+    M = kd.node_flag.shape[0]
+    for name, nodes_bytes in (("packet_traverse", M * 20), ("mega_walk", M * 24)):
+        for mode in ("closest", "any_hit"):
+            par = parity[name]
+            key = "closest" if mode == "closest" else "any"
+            launches = counts[mode] if name == "packet_traverse" else None  # mega: phase 7
+            kernels.append(kernel_entry(
+                name, mode, kd, timing_inputs[mode], depth, launches, plain_err(par, mode, plains),
+                nodes_bytes, dict(scene="teapot", parity={"bounce0": par[f"{key}_b0"],
+                                             f"bounce{LATER_BOUNCE}": par[f"{key}_b{LATER_BOUNCE}"]})))
+    log("phase 6 teapot kernel times")
+
+    # ---- 7. the teapot frame through the mega kernel ----
+    mcfg = Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48, ray_tile=0,
+                       traversal_backend="mega")
+    mega_s, mega_img, mega_counts = frame(scene, mcfg, "teapot mega frame", "mega_walk")
+    mega_off = u8_off(quantize_u8, mega_img, img)
+    check(mega_off < U8_TOLERANCE, f"mega teapot frame: {mega_off:.4%} of u8 channels off by > 1")
+    for e in kernels:
+        if e["name"].startswith("mega_walk"):
+            e["launches"] = mega_counts[e["name"].split("[")[1][:-1]]
+    log(f"phase 7 mega frame: {mega_s:.3f} s, launches {mega_counts}, vs packet frame: "
+        f"{mega_off:.6%} of u8 channels off by > 1, max abs diff {float((mega_img - img).abs().max()):.3g}")
+    del img, mega_img
+
+    # ---- 8. the flagship scene: bench.py's dragon ----
+    fcfg = Config(Width=1920, Height=1080, use_kdtree=True, ray_tile=0, MaxPrims=192, leaf_chunk_lanes=48)
+    t = time.perf_counter()
+    builder = default_scene(seed=0, cfg=fcfg, mesh="dragon")
+    load_s = time.perf_counter() - t
+    build_s, dscene = wall_s(torch, lambda: builder.build(fcfg, device=dev))
+    dkd = dscene.kd
+    check(dkd.tre_tbl is not None and dkd.top_tbl is not None, "dragon tree has no treelet tables")
+    dM = dkd.node_flag.shape[0]
+    dB, dS = dkd.block_orig.shape
+    log(f"phase 8 dragon scene: {dscene.n_triangles} triangles, load {load_s:.2f} s, host build + upload "
+        f"{build_s:.2f} s, {dM} nodes ({int((dkd.node_flag == 3).sum())} leaves), depth {dkd.max_depth}, "
+        f"{dB} blocks of {dS} slots ({float((dkd.block_orig >= 0).float().mean()):.1%} of slots hold a triangle), "
+        f"{dkd.tre_tbl.shape[0]} treelets of {dkd.tre_tbl.shape[1]} rows, {dkd.top_tbl.shape[0]} top rows, "
+        f"block_g {dkd.block_g.numel() * 4 / 1e6:.1f} MB")
+
+    # ---- 9. the flagship frame (auto: packet kernel) ----
+    dwarm_s, _ = wall_s(torch, lambda: render_image(dscene, fcfg, device=dev))
+    flag_s, flag_img, flag_counts = frame(dscene, fcfg, "dragon flagship frame", "packet_traverse")
+    log(f"phase 9 flagship frame: warm {dwarm_s:.3f} s, timed {flag_s:.3f} s, {pixels / flag_s:.0f} primary "
+        f"rays/s, mean {float(flag_img.mean()):.4f}, launches {read_counts()}")
+
+    # ---- 10. the flagship frame through the forest kernel ----
+    ffcfg = Config(Width=1920, Height=1080, use_kdtree=True, ray_tile=0, MaxPrims=192, leaf_chunk_lanes=48,
+                   traversal_backend="forest")
+    forest_s, forest_img, forest_counts = frame(dscene, ffcfg, "dragon forest frame", "forest_walk")
+    forest_off = u8_off(quantize_u8, forest_img, flag_img)
+    check(forest_off < U8_TOLERANCE, f"forest dragon frame: {forest_off:.4%} of u8 channels off by > 1")
+    log(f"phase 10 forest frame (full 1920x1080, not cut): {forest_s:.3f} s, launches {forest_counts}, "
+        f"vs flagship frame: {forest_off:.6%} of u8 channels off by > 1, "
+        f"max abs diff {float((forest_img - flag_img).abs().max()):.3g}")
+    del forest_img, flag_img
+
+    # ---- 11. forest parity on the dragon ----
+    ddepth = _stack_depth(dkd, fcfg)
+    dverts = dscene.triangles.verts
+    dplains = {"forest_plain": traverse_forest_plain, "plain": traverse_plain}
+    o_all, d_all, raw_all, dtile, wstart = best_window(dscene, fcfg, packet.packet_traverse, ddepth,
+                                                        DRAGON_PARITY_RAYS)
+    w = slice(wstart, wstart + DRAGON_PARITY_RAYS)
+    log(f"phase 11 parity window: rays [{wstart}, {wstart + DRAGON_PARITY_RAYS}) of {o_all.shape[0]}, "
+        f"in the {dtile}-ray tile at {wstart // dtile * dtile}")
+    dpar = {"packet_traverse": {}, "forest_walk": {}}
+    for k, (qo, qd, qt), (so, sd, st) in bounces(dscene, fcfg, o_all[w], d_all[w], raw_all[w],
+                                                 (0, LATER_BOUNCE), DRAGON_PARITY_RAYS):
+        refs = closest_refs(dkd, dverts, ddepth, qo, qd, qt, dplains, DRAGON_BRUTE_RAYS)
+        pk = packet.packet_traverse(dkd, qo, qd, qt, ddepth, False)
+        dpar["packet_traverse"][f"closest_b{k}"] = check_closest(
+            f"bounce {k}", "packet_traverse", pk, refs, dverts, qo, qd, qt)
+        refs["packet"] = (*pk[:2], pk[2] & (pk[0] < qt), qo.shape[0])
+        dpar["forest_walk"][f"closest_b{k}"] = check_closest(
+            f"bounce {k}", "forest_walk", forest.forest_traverse(dkd, qo, qd, qt, ddepth, False), refs,
+            dverts, qo, qd, qt)
+        # brute force on the shadow rays of the first DRAGON_BRUTE_RAYS points, per light
+        L = dscene.lights.position.shape[0]
+        sub = torch.cat([torch.arange(li * DRAGON_PARITY_RAYS, li * DRAGON_PARITY_RAYS + DRAGON_BRUTE_RAYS,
+                                      device=dev) for li in range(L)])
+        outs = {"packet_traverse": packet.packet_traverse(dkd, so, sd, st, ddepth, True),
+                "forest_walk": forest.forest_traverse(dkd, so, sd, st, ddepth, True)}
+        arefs = {name: (*walk(dkd, so, sd, st, ddepth, True)[1:], so.shape[0]) for name, walk in dplains.items()}
+        dpar["packet_traverse"][f"any_b{k}"] = check_any(f"bounce {k}", "packet_traverse",
+                                                         outs["packet_traverse"], arefs, dverts, so, sd)
+        arefs["packet"] = (*outs["packet_traverse"][1:], so.shape[0])
+        dpar["forest_walk"][f"any_b{k}"] = check_any(f"bounce {k}", "forest_walk", outs["forest_walk"], arefs,
+                                                     dverts, so, sd)
+        so, sd, st = so[sub], sd[sub], st[sub]
+        brefs = {"brute": (None, brute_any(dverts, so, sd, st), so.shape[0])}
+        for kname, out in outs.items():
+            dpar[kname][f"any_b{k}"].update(check_any(
+                f"bounce {k}, {DRAGON_BRUTE_RAYS} points per light", kname, [x[sub] for x in out], brefs,
+                dverts, so, sd))
+
+    # ---- 12. flagship kernel times and bounds ----
+    tstart = wstart // dtile * dtile
+    td = next(bounces(dscene, fcfg, *(x[tstart:tstart + dtile] for x in (o_all, d_all, raw_all)), (0,), dtile))
+    del o_all, d_all, raw_all
+    dinputs = {"closest": td[1], "any_hit": td[2]}
+    T, cap = dkd.tre_tbl.shape[:2]
+    for name, nodes_bytes, counts_of in (
+            ("packet_traverse", dM * 20, flag_counts),
+            ("forest_walk", dkd.top_tbl.shape[0] * 16 + T * cap * 24, forest_counts)):
+        for mode in ("closest", "any_hit"):
+            par = dpar[name]
+            key = "closest" if mode == "closest" else "any"
+            extra = dict(scene="dragon", parity={"bounce0": par[f"{key}_b0"],
+                                                 f"bounce{LATER_BOUNCE}": par[f"{key}_b{LATER_BOUNCE}"]})
+            entry = kernel_entry(name, mode, dkd, dinputs[mode], ddepth, counts_of[mode],
+                                 plain_err(par, mode, dplains), nodes_bytes, extra)
+            if name == "packet_traverse":
+                entry["name"] = f"packet_traverse[{mode},dragon]"
+            kernels.append(entry)
+    log("phase 12 flagship kernel times")
+
+    # ---- 13. where one flagship frame's device time goes ----
     from torch.profiler import ProfilerActivity, profile
 
-    launches_before = sum(packet.launches.values())
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        render_image(scene, cfg, device=dev)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t) * 1e3
-    launches_per_frame = sum(packet.launches.values()) - launches_before
+        prof_wall_ms = wall_s(torch, lambda: render_image(dscene, fcfg, device=dev))[0] * 1e3
+    launches_per_frame = sum(packet.launches.values())
     dev_ms = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -329,18 +626,19 @@ def main(device: str = "cuda") -> int:
         ours = sum(v for k, v in dev_ms.items() if "packet_traverse_kernel" in k)
         top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
         print(json.dumps({"profile": {
-            "frame_wall_ms": prof_wall_ms, "device_busy_ms": busy,
+            "frame": "dragon flagship, auto", "frame_wall_ms": prof_wall_ms, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / prof_wall_ms),
             "traversal_kernel_ms": ours, "traversal_share_of_busy": ours / busy,
             "traversal_launches": launches_per_frame,
             "top": [{"name": k[:90], "ms": v} for k, v in top]}}), flush=True)
     else:
         print(json.dumps({"profile": "not measured: the profiler recorded no device time"}), flush=True)
-    log("phase 7 profile")
+    log("phase 13 profile")
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    log(f"done: frame {frame_s:.3f} s on {card}")
+    log(f"done: teapot frame {frame_s:.3f} s, dragon flagship frame {flag_s:.3f} s, dragon forest frame "
+        f"{forest_s:.3f} s, teapot mega frame {mega_s:.3f} s on {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -2,9 +2,9 @@
 
 A Whitted ray tracer with the reference CPU tracer's semantics
 (AVassilev98/dod_raytracer, see SURVEY.md): wavefront ray batches, fused
-primitive intersection, a SAH kd tree walked by a hand-written CUDA kernel
-(``csrc/packet_traverse.cu``), Whitted shading with point lights and
-shadows.  Module names mirror ``dod_raytracer_tpu``; that JAX package is
+primitive intersection, a SAH kd tree walked by hand-written CUDA kernels
+(``csrc/packet_traverse.cu``; ``csrc/kd_walk.cu``, the mega and forest
+walks), Whitted shading with point lights and shadows.  Module names mirror ``dod_raytracer_tpu``; that JAX package is
 the reference the port is tested against, and nothing here imports it.
 
 Entry points run on the card by default (``device="cuda"``); pass

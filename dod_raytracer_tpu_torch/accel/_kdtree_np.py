@@ -1,7 +1,8 @@
 """Host-side SAH kd-tree builder (numpy).
 
 Copy of ``dod_raytracer_tpu.accel._kdtree_np`` (``build``, ``lane_bounds``,
-``align_leaves``, ``perm_from_prim_nums``): a faithful reimplementation of
+``align_leaves``, ``perm_from_prim_nums``, ``cut_treelets``,
+``build_top_table``, ``pack_treelet_tables``): a faithful reimplementation of
 the reference builder (``src/accelerators/kdtree.cpp:66-260``) over
 triangle *lanes* (groups of ``lane_size`` consecutive triangles,
 ``triangle.h:33-44``), emitting flat arrays instead of pointer nodes:
@@ -244,3 +245,141 @@ def perm_from_prim_nums(prim_nums: np.ndarray, num_tris: int, lane_size: int) ->
     flat = base.reshape(-1)
     flat = np.where((flat >= 0) & (flat < num_tris) & np.repeat(prim_nums >= 0, lane_size), flat, -1)
     return flat.astype(np.int32)
+
+
+def cut_treelets(built: BuiltKD, cap: int):
+    """Cut the preorder node array into root-disjoint subtrees ("treelets")
+    of <= cap nodes each, for the two-level forest walk.
+
+    Nodes are emitted in preorder (``build`` appends parent, then the whole
+    left subtree, then the right), so subtree(i) = [i, i+size(i)) is
+    contiguous and a treelet is a plain slice.  Interior nodes *above* the
+    cuts become the compact "top tree" (``build_top_table``) whose leaves
+    are the treelet roots; the two-level walk carries the exact intervals
+    the single-tree walk would have used.
+
+    Returns (roots (T,) i64, sizes (T,) i64) in preorder (= ascending
+    node-index) order.
+    """
+    M = built.node_flag.shape[0]
+    size = np.ones(M, np.int64)
+    for i in range(M - 1, -1, -1):  # reverse preorder: children first
+        if built.node_flag[i] != LEAF_FLAG:
+            size[i] = 1 + size[i + 1] + size[built.node_right[i]]
+    roots, sizes = [], []
+    stack = [0]
+    while stack:
+        i = stack.pop()
+        if size[i] <= cap:
+            roots.append(i)
+            sizes.append(int(size[i]))
+            continue
+        stack.append(int(built.node_right[i]))
+        stack.append(i + 1)
+    return np.asarray(roots, np.int64), np.asarray(sizes, np.int64)
+
+
+TOP_LEAF_FLAG = 4  # top-table row that refers to a treelet ("super-leaf")
+# the JAX package's one-table gate (traverse_kernel.py MAX_NODES): the
+# backend dispatch sends "mega" on bigger trees elsewhere, and trees of
+# more nodes than treelet_cap (0: this) get treelet tables
+MAX_NODES = 1024
+
+
+def _rows(ints: np.ndarray, split: np.ndarray) -> np.ndarray:
+    """int32 columns with column 1 replaced by the f32 split, as one f32
+    array whose int columns are bit-cast (the CUDA kernels' row format)."""
+    out = np.ascontiguousarray(ints, dtype=np.int32)
+    out[..., 1] = np.asarray(split, np.float32).view(np.int32)
+    return out.view(np.float32)
+
+
+def build_top_table(built: BuiltKD, roots: np.ndarray) -> np.ndarray:
+    """Compact preorder table of the interior nodes ABOVE the treelet cuts,
+    with each cut root replaced by a super-leaf row pointing at its treelet.
+
+    (Ttop, 4) f32 rows [flag | split | right_top | tre_id], int columns
+    bit-cast: flag 0/1/2 = split axis (interior), TOP_LEAF_FLAG = super-leaf
+    whose tre_id indexes the treelet tables.  Preorder is preserved under
+    restriction to top nodes, so the left child is still ``row + 1`` and
+    only the right link is rebased.  The JAX package stores the same
+    values as floats in (max(128, Ttop rounded up to 128), 128) rows for
+    its TPU matmul fetch; the rows past Ttop are zero there.
+    """
+    root_to_tre = {int(r): t for t, r in enumerate(np.asarray(roots))}
+    ints: list = []
+    split: list = []
+
+    def rec(i: int) -> int:
+        my = len(ints)
+        tre = root_to_tre.get(i)
+        if tre is not None:
+            ints.append([TOP_LEAF_FLAG, 0, 0, tre])
+            split.append(0.0)
+            return my
+        ints.append([int(built.node_flag[i]), 0, 0, 0])
+        split.append(built.node_split[i])
+        rec(i + 1)
+        ints[my][2] = rec(int(built.node_right[i]))
+        return my
+
+    rec(0)
+    return _rows(np.asarray(ints, np.int32), np.asarray(split, np.float32))
+
+
+def pack_treelet_tables(built: BuiltKD, roots, sizes, block_lanes: int,
+                        cap: int) -> np.ndarray:
+    """(T, cap, 6) f32 node tables, one row per node of each treelet:
+    [flag | split | right_local | leaf_start | leaf_lanes | block0], int
+    columns bit-cast.  Child indices are treelet-local (left = local+1 by
+    preorder, right rebased; 0 at leaves); leaf_start and block0 =
+    leaf_start // block_lanes stay global.  Rows past a treelet's size
+    are zero.  The same columns, as floats in 128-wide rows, are the JAX
+    package's (T, cap, 128) tables."""
+    T = len(roots)
+    ints = np.zeros((T, cap, 6), np.int32)
+    split = np.zeros((T, cap), np.float32)
+    for t in range(T):
+        r, sz = int(roots[t]), int(sizes[t])
+        sl = slice(r, r + sz)
+        flag = built.node_flag[sl]
+        interior = flag != LEAF_FLAG
+        ints[t, :sz, 0] = flag
+        ints[t, :sz, 2] = np.where(interior, built.node_right[sl] - r, 0)
+        ints[t, :sz, 3] = built.node_leaf_start[sl]
+        ints[t, :sz, 4] = built.node_leaf_lanes[sl]
+        ints[t, :sz, 5] = built.node_leaf_start[sl] // max(block_lanes, 1)
+        split[t, :sz] = built.node_split[sl]
+    return _rows(ints, split)
+
+
+def _wide_rows(rows: np.ndarray, int_cols) -> np.ndarray:
+    out = rows.copy()
+    ints = rows.view(np.int32)
+    for c in int_cols:
+        out[..., c] = ints[..., c].astype(np.float32)
+    return out
+
+
+def _narrow_rows(wide: np.ndarray) -> np.ndarray:
+    # exact: the int columns hold integers below 2^24
+    return _rows(wide.astype(np.int32), wide[..., 1])
+
+
+def tables_to_jax(tre_tbl: np.ndarray, top_tbl: np.ndarray):
+    """The port's (T, cap, 6) / (Ttop, 4) tables -> the JAX package's
+    (T, cap, 128) / (max(128, Ttop up to a 128 multiple), 128) float rows."""
+    T, cap, _ = tre_tbl.shape
+    tre = np.zeros((T, cap, 128), np.float32)
+    tre[..., :6] = _wide_rows(tre_tbl, (0, 2, 3, 4, 5))
+    ttop = top_tbl.shape[0]
+    top = np.zeros((max(128, -(-ttop // 128) * 128), 128), np.float32)
+    top[:ttop, :4] = _wide_rows(top_tbl, (0, 2, 3))
+    return tre, top
+
+
+def tables_from_jax(tre_wide: np.ndarray, top_wide: np.ndarray):
+    """Inverse of ``tables_to_jax``.  The top tree is binary over its T
+    super-leaves, so it has 2T - 1 rows."""
+    ttop = 2 * tre_wide.shape[0] - 1
+    return _narrow_rows(tre_wide[..., :6]), _narrow_rows(top_wide[:ttop, :4])

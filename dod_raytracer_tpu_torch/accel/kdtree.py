@@ -6,11 +6,14 @@ the scene's device, plus the blocked leaf layout that the traversals read:
 
 * ``block_orig`` (B, S): original triangle id per slot of each leaf block
   (S = leaf_chunk_lanes * lane_size), -1 for empty slots;
-* ``block_tris`` (B, S, 9): pre-gathered [A | B-A | C-A] rows (the plain
-  walk's Möller–Trumbore input);
-* ``block_g`` (B, 16, 5*Spad): per-block Plücker matrices (the CUDA packet
-  kernel's input, ``pack_block_g``);
-* ``block_aabb`` (6, B): per-block vertex AABB (the kernel's block pre-test).
+* ``block_tris`` (B, S, 9): pre-gathered [A | B-A | C-A] rows (the
+  Möller–Trumbore input of the kernels and the plain walks);
+* ``block_g`` (B, 16, 5*Spad): per-block Plücker matrices (``pack_block_g``;
+  the kernels and the plain walks read rows 0-5 of its edge sections);
+* ``block_aabb`` (6, B): per-block vertex AABB (the kernel's block pre-test);
+* ``tre_tbl`` / ``top_tbl``: the treelet forest of a tree of more than
+  ``treelet_cap`` (0: ``_kdtree_np.MAX_NODES`` = 1024) nodes, the forest
+  kernel's tables (``_kdtree_np.cut_treelets``).
 """
 
 from __future__ import annotations
@@ -51,7 +54,18 @@ def build_kdtree(tri_verts: np.ndarray, cfg, device="cuda") -> KDArrays:
     perm = _kdtree_np.perm_from_prim_nums(built.prim_nums, tri_verts.shape[0], cfg.lane_size)
     block = cfg.leaf_chunk_lanes * cfg.lane_size
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    # treelet forest when the tree exceeds one table of the mega walk
+    tre_tbl = top_tbl = None
+    cap = int(getattr(cfg, "treelet_cap", 0)) or _kdtree_np.MAX_NODES
+    if built.node_flag.shape[0] > cap:
+        roots, sizes = _kdtree_np.cut_treelets(built, cap)
+        tre_tbl = t(_kdtree_np.pack_treelet_tables(built, roots, sizes, cfg.leaf_chunk_lanes, cap))
+        top_tbl = t(_kdtree_np.build_top_table(built, roots))
+
     kd = KDArrays(
+        tre_tbl=tre_tbl,
+        top_tbl=top_tbl,
         node_flag=t(built.node_flag),
         node_split=t(built.node_split),
         node_right=t(built.node_right),

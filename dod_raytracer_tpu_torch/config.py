@@ -35,13 +35,14 @@ class Config:
     stack_depth: int = 64  # traversal worklist depth cap (kdtree.cpp:279)
     use_kdtree: bool = True
     triangle_backend: str = "jnp"  # brute-force path: only 'jnp' (plain torch) is ported
-    # kd traversal backend: 'auto' and 'packet' go through the packet
-    # wrapper (CUDA kernel on the card, plain walk on the CPU); the JAX
-    # package's 'xla', 'binned', 'mega' and 'forest' are not ported.
+    # kd traversal backend (ops.traverse._backend): 'auto' and 'packet'
+    # -> the packet kernel; 'mega' and 'forest' -> the mega or forest
+    # kernel as the JAX package resolves them; 'xla' and 'binned' are not
+    # ported.  Each wrapper takes its plain walk on CPU tensors.
     traversal_backend: str = "auto"
-    treelet_cap: int = 0  # JAX forest kernel only
-    forest_tile: int = 0  # JAX forest kernel only
-    packet_tile: int = 0  # JAX packet kernel only
+    treelet_cap: int = 0  # forest treelet node cap (0 = accel._kdtree_np.MAX_NODES)
+    forest_tile: int = 0  # JAX TPU forest kernel's ray tile; no effect here
+    packet_tile: int = 0  # JAX TPU packet kernel's ray tile; no effect here
     fold_groups: int = 8  # JAX packet kernel only
     dma_fifo: int = 0  # JAX packet kernel only
     sort_kill_tail: bool = False  # JAX bounce sort only

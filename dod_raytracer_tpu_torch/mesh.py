@@ -8,8 +8,10 @@ and the per-face flattening of ``mesh.cpp:36-48``), numpy only:
 * ``join_identical`` — exact-position vertex dedup.
 * ``smooth_normals`` — per-vertex average of adjacent unit face normals.
 * ``mesh_to_triangles`` — flatten to the renderer's (T, 3, 3) soup.
+* ``procedural_dragon`` — the deterministic 869,952-triangle dragon
+  stand-in that ``bench.py`` renders (committed as ``assets/dragon_proc.npz``).
 
-The procedural dragon asset and the PLY reader belong to the next slice.
+The PLY reader is not ported: the repository has no PLY asset.
 """
 
 from __future__ import annotations
@@ -103,11 +105,62 @@ def load_mesh(path: str):
     return mesh_to_triangles(verts, faces, vn)
 
 
+def procedural_dragon(num_tris: int = 869_888, seed: int = 7):
+    """Deterministic high-poly dragon stand-in: a trefoil-knot tube with
+    radial displacement ripples, scaled into the reference's +-5 box.
+
+    (p, q) = (3, 2) torus knot; ``num_tris`` rounds to segments*rings*2.
+    The same float64 numpy arithmetic as the JAX package's, so the two
+    give the same bits.
+    """
+    rings = 368
+    segs = max(4, int(round(num_tris / (2 * rings))))
+    t = np.linspace(0.0, 2.0 * np.pi, segs, endpoint=False, dtype=np.float64)
+    p, q = 3.0, 2.0
+    r = np.cos(q * t) + 2.0
+    center = np.stack([r * np.cos(p * t), r * np.sin(p * t), -np.sin(q * t)], axis=1)
+    # Frenet-ish frame
+    dt = np.roll(center, -1, axis=0) - np.roll(center, 1, axis=0)
+    tang = dt / np.linalg.norm(dt, axis=1, keepdims=True)
+    up = np.array([0.0, 0.0, 1.0])
+    side = np.cross(tang, up)
+    side /= np.linalg.norm(side, axis=1, keepdims=True)
+    up2 = np.cross(side, tang)
+
+    theta = np.linspace(0.0, 2.0 * np.pi, rings, endpoint=False, dtype=np.float64)
+    tube_r = 0.55 + 0.12 * np.sin(9.0 * t)[:, None] + 0.05 * np.cos(7.0 * theta)[None, :]
+    circ = (
+        center[:, None, :]
+        + tube_r[..., None] * (np.cos(theta)[None, :, None] * side[:, None, :]
+                               + np.sin(theta)[None, :, None] * up2[:, None, :])
+    )  # (segs, rings, 3)
+    circ *= 1.05  # scale into the box, teapot-like footprint
+    verts = circ.reshape(-1, 3).astype(np.float32)
+
+    i = np.arange(segs)[:, None]
+    j = np.arange(rings)[None, :]
+    v00 = (i * rings + j).ravel()
+    v01 = (i * rings + (j + 1) % rings).ravel()
+    v10 = (((i + 1) % segs) * rings + j).ravel()
+    v11 = (((i + 1) % segs) * rings + (j + 1) % rings).ravel()
+    faces = np.concatenate(
+        [np.stack([v00, v10, v11], axis=1), np.stack([v00, v11, v01], axis=1)], axis=0
+    ).astype(np.int32)
+    vn = smooth_normals(verts, faces)
+    return mesh_to_triangles(verts, faces, vn)
+
+
 def load_mesh_asset(name: str):
-    """Named asset loader: 'teapot' (the committed reference mesh) or an
-    OBJ path.  The 'dragon' asset is the next slice's."""
+    """Named asset loader: 'teapot' (the committed reference mesh),
+    'dragon' (the procedural stand-in, read from the committed
+    ``assets/dragon_proc.npz``; built in memory when that file is missing,
+    and never written back) or an OBJ path."""
     if name == "teapot":
         return load_mesh(os.path.join(_ASSET_DIR, "teapot.obj"))
     if name == "dragon":
-        raise NotImplementedError("the dragon asset is not ported yet")
+        cache = os.path.join(_ASSET_DIR, "dragon_proc.npz")
+        if os.path.exists(cache):
+            with np.load(cache) as z:
+                return z["verts"], z["normals"]
+        return procedural_dragon()
     return load_mesh(name)

@@ -35,18 +35,52 @@ def _dot(a, b):
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
 
 
-def mt_t_edges(A, e1, e2, o, d):
+def plucker_row(o, d):
+    """(N, 6) ray rows [d, o x d] of the Plücker edge products, each
+    operation its own (csrc/kd_leaf.cuh plucker_row)."""
+    return torch.stack([*d.unbind(-1), *_cross(o.unbind(-1), d.unbind(-1))], dim=-1)
+
+
+def plucker_inside(row, g):
+    """The CUDA kernels' leaf test: Plücker edge signs of per-ray blocks.
+
+    Args:
+      row: (N, 6) ray rows (``plucker_row``).
+      g: (N, 6, 3, K) rows 0-5 of the edge sections s0..s2 of each ray's
+        ``block_g`` block (``accel.kdtree.pack_block_g``), K slots.
+    Returns: (N, K) bool, True where the three signs are all > 0 or all < 0.
+
+    Each sign is summed in row order, every product and sum rounded on its
+    own, as ``csrc/kd_leaf.cuh`` ``test_block`` does: the same bits on the
+    CPU and on the card.  Near an edge this is not the barycentric test of
+    ``mt_t_edges`` without ``inside``: the two can disagree on which of two
+    triangles sharing an edge a ray meets, or whether it meets one.
+    """
+    signs = []
+    for e in range(3):
+        s = row[:, 0, None] * g[:, 0, e]
+        for k in range(1, 6):
+            s = s + row[:, k, None] * g[:, k, e]
+        signs.append(s)
+    s0, s1, s2 = signs
+    return ((s0 > 0.0) & (s1 > 0.0) & (s2 > 0.0)) | ((s0 < 0.0) & (s1 < 0.0) & (s2 < 0.0))
+
+
+def mt_t_edges(A, e1, e2, o, d, inside=None):
     """Candidate t from precomputed-edge blocks.
 
     Args:
       A, e1, e2: (N, K, 3) per-ray triangle blocks (A, B-A, C-A).
       o, d: (N, 3) rays.
+      inside: optional (N, K) bool from ``plucker_inside``: where given it
+        takes the place of the barycentric tests on u and v, as in the CUDA
+        kernels' leaf test.
     Returns: t (N, K), +inf invalid (t > 0 enforced).
 
     The cross and dot products are spelled out one operation per tensor
     op, so no device fuses or reorders them: t is the same bits on the CPU
-    and on the card, and the CUDA kernel (csrc/packet_traverse.cu
-    mt_distance) repeats exactly these operations.
+    and on the card, and the CUDA kernels (csrc/kd_leaf.cuh mt_distance)
+    repeat exactly these operations.
     """
     d_b = d[:, None, :].unbind(-1)
     e1c, e2c = e1.unbind(-1), e2.unbind(-1)
@@ -55,11 +89,13 @@ def mt_t_edges(A, e1, e2, o, d):
     valid = torch.abs(det) > 0.0
     inv_det = safe_div(torch.ones_like(det), det, valid)
     tvec = (o[:, None, :] - A).unbind(-1)
-    u = _dot(tvec, pvec) * inv_det
-    valid = valid & (u > 0.0) & (u < 1.0)
     qvec = _cross(tvec, e1c)
-    v = _dot(d_b, qvec) * inv_det
-    valid = valid & (v > 0.0) & (u + v < 1.0)
+    if inside is None:
+        u = _dot(tvec, pvec) * inv_det
+        v = _dot(d_b, qvec) * inv_det
+        valid = valid & (u > 0.0) & (u < 1.0) & (v > 0.0) & (u + v < 1.0)
+    else:
+        valid = valid & inside
     t = _dot(e2c, qvec) * inv_det
     valid = valid & (t > 0.0)
     return torch.where(valid, t, INF)

@@ -90,6 +90,10 @@ class KDArrays:
     block_tris: Optional[torch.Tensor] = None  # (B, S, 9) f32 [A|e1|e2]
     block_g: Optional[torch.Tensor] = None  # (B, 16, 5*Spad) f32 Plücker matrices
     block_aabb: Optional[torch.Tensor] = None  # (6, B) f32 per-block vertex AABB
+    # treelet forest of trees of more than treelet_cap nodes (the forest
+    # kernel's input; accel._kdtree_np), int columns bit-cast into f32
+    tre_tbl: Optional[torch.Tensor] = None  # (T, cap, 6) [flag|split|right|leaf_start|leaf_lanes|block0]
+    top_tbl: Optional[torch.Tensor] = None  # (Ttop, 4) [flag|split|right|treelet]
     lane_size: int = 8
     num_lanes: int = 0  # reordered lane count K
     max_leaf_lanes: int = 0
@@ -124,6 +128,11 @@ _NESTED = {"spheres": Spheres, "planes": Planes, "cylinders": Cylinders,
 
 
 def _from_numpy(cls, arrays: dict, device):
+    if cls is KDArrays and arrays.get("tre_tbl") is not None:
+        from .accel._kdtree_np import tables_from_jax
+
+        arrays = dict(arrays)
+        arrays["tre_tbl"], arrays["top_tbl"] = tables_from_jax(arrays["tre_tbl"], arrays["top_tbl"])
     kw = {}
     for f in dataclasses.fields(cls):
         if f.name not in arrays:
@@ -145,16 +154,23 @@ def scene_from_numpy(arrays: dict, device="cuda") -> Scene:
     """Port's ``Scene`` from the JAX ``Scene``'s leaves as numpy arrays.
 
     ``arrays`` nests like the dataclasses: ``{"spheres": {"center": ...},
-    ..., "kd": {...} or None, "n_spheres": 16, ...}``.  Keys the port has
-    no field for (the JAX treelet tables) are ignored.
+    ..., "kd": {...} or None, "n_spheres": 16, ...}``.  The treelet
+    tables come in the JAX package's 128-column float layout and are
+    stored in the port's compact one (``accel._kdtree_np.tables_from_jax``).
     """
     return _from_numpy(Scene, arrays, device)
 
 
 def scene_to_numpy(obj) -> Any:
-    """Inverse of ``scene_from_numpy``: nested dict of numpy arrays/ints."""
+    """Inverse of ``scene_from_numpy``: nested dict of numpy arrays/ints,
+    with the treelet tables in the JAX package's layout."""
     if dataclasses.is_dataclass(obj):
-        return {f.name: scene_to_numpy(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+        out = {f.name: scene_to_numpy(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+        if isinstance(obj, KDArrays) and out["tre_tbl"] is not None:
+            from .accel._kdtree_np import tables_to_jax
+
+            out["tre_tbl"], out["top_tbl"] = tables_to_jax(out["tre_tbl"], out["top_tbl"])
+        return out
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().numpy()
     return obj
@@ -297,8 +313,8 @@ def default_scene(seed: int = 0, cfg=None, num_spheres: int = 16, with_cylinder:
     a seeded PRNG replacing ``srand(time(NULL))`` (main.cpp:351).
 
     Same draws in the same order as ``dod_raytracer_tpu.scene.default_scene``,
-    so one seed gives both packages the same scene.  The default mesh is
-    the committed teapot; the dragon asset is the next slice's.
+    so one seed gives both packages the same scene.  ``mesh`` is
+    'teapot' (the default), 'dragon', an OBJ path or None.
     """
     rng = np.random.default_rng(seed)
     b = SceneBuilder()

@@ -1,12 +1,15 @@
-"""The CUDA kd-traversal kernel vs the plain walk, on a CUDA device.
+"""The CUDA kd-traversal kernels (packet, mega, forest) vs their plain
+walks, on a CUDA device.
 
-The kernel has no CPU mode, so every test here skips without a card.
+The kernels have no CPU mode, so every test here skips without a card.
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed:  python -m pytest --noconftest tests/test_torch_cuda.py
 
-Parity rules of the packet traversal (tests/test_packet.py): hit masks
-agree, t agrees to rtol 1e-3 where both hit, and a prim may differ only
-where both candidates' Möller–Trumbore t agree to rtol 1e-5.
+Parity rule: the plain walks compute the kernels' leaf test (Plücker
+edge signs on block_g, Möller–Trumbore t on block_tris, each operation
+in the kernels' order) in the kernels' visit order, so a kernel and its
+plain walk, on the card or on the CPU, give the same bits: hit masks
+equal, t and prims equal where both hit.
 """
 
 import dataclasses
@@ -17,7 +20,7 @@ import torch
 
 import dod_raytracer_tpu_torch as T
 from dod_raytracer_tpu_torch.mesh import load_mesh_asset
-from dod_raytracer_tpu_torch.ops import packet
+from dod_raytracer_tpu_torch.ops import forest, mega, packet
 from dod_raytracer_tpu_torch.ops import traverse as ttrav
 
 N = 4096
@@ -52,18 +55,9 @@ def make_rays(case, seed):
     return [torch.from_numpy(x).cuda() for x in (o, d.astype(np.float32), t_max)]
 
 
-def mt_t(verts, prim, o, d):
-    tri = verts[prim]
-    a, e1, e2 = tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
-    p = np.cross(d, e2)
-    det = np.sum(e1 * p, axis=1)
-    q = np.cross(o - a, e1)
-    return np.sum(e2 * q, axis=1) / det
-
-
 @pytest.mark.parametrize("case", ["unclipped", "clipped", "inside"])
 def test_closest_matches_plain_walk(teapot_kd, case):
-    tv, kd, depth = teapot_kd
+    _, kd, depth = teapot_kd
     o, d, t_max = make_rays(case, seed=4)
     before = packet.launches["closest"]
     tk, pk, fk = packet.packet_traverse(kd, o, d, t_max, depth, False)
@@ -74,11 +68,8 @@ def test_closest_matches_plain_walk(teapot_kd, case):
     assert hp.sum() > N // 8
     np.testing.assert_array_equal(hk, hp)
     tk, tp, pk, pp = (x.cpu().numpy() for x in (tk, tp, pk, pp))
-    np.testing.assert_allclose(tk[hp], tp[hp], rtol=1e-3)
-    flip = hp & (pk != pp)
-    if flip.any():
-        on, dn = o.cpu().numpy()[flip], d.cpu().numpy()[flip]
-        np.testing.assert_allclose(mt_t(tv, pk[flip], on, dn), mt_t(tv, pp[flip], on, dn), rtol=1e-5)
+    np.testing.assert_array_equal(tk[hp], tp[hp])
+    np.testing.assert_array_equal(pk[hp], pp[hp])
 
 
 @pytest.mark.parametrize("case", ["unclipped", "clipped", "inside"])
@@ -118,10 +109,121 @@ def test_stats_build_gives_the_same_result(teapot_kd, any_hit):
     _, kd, depth = teapot_kd
     o, d, t_max = make_rays("clipped", seed=7)
     ref = packet.packet_traverse(kd, o, d, t_max, depth, any_hit)
-    stats = torch.zeros((N, 3), dtype=torch.int32, device="cuda")
-    got = packet.packet_traverse(kd, o, d, t_max, depth, any_hit, stats=stats)
+    stats, touched = _stats_outputs(kd)
+    got = packet.packet_traverse(kd, o, d, t_max, depth, any_hit, stats=stats, touched=touched)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    steps, blocks, slots = stats.long().sum(0).tolist()
+    _check_stats(kd, stats, touched, aabb=True)
+    with pytest.raises(ValueError, match="stats"):
+        packet.packet_traverse(kd, o, d, t_max, depth, any_hit, touched=touched)
+
+
+def _stats_outputs(kd):
+    B, S = kd.block_orig.shape
+    return (torch.zeros((N, 4), dtype=torch.int32, device="cuda"),
+            torch.zeros((B, 2 + S), dtype=torch.int32, device="cuda"))
+
+
+def _check_stats(kd, stats, touched, aabb):
+    """The measurement build's counts agree with its marks."""
+    steps, blocks, slots, distances = stats.long().sum(0).tolist()
     valid_per_block = int((kd.block_orig >= 0).sum(1).max())
     assert steps > 0 and blocks > 0 and 0 < slots <= blocks * valid_per_block
+    assert 0 < distances <= slots
+    marks = touched.bool()
+    edge_blocks = int(marks[:, 1].sum())
+    assert 0 < edge_blocks <= blocks
+    assert 0 < int(marks[:, 2:].sum()) <= distances
+    assert not (marks[:, 2:].any(1) & ~marks[:, 1]).any()  # a slot read lies in an edge-tested block
+    assert not (marks[:, 2:] & (kd.block_orig < 0)).any()  # empty slots never pass the edge signs
+    if aabb:
+        assert not (marks[:, 1] & ~marks[:, 0]).any()  # edge-tested blocks had their AABB read
+    else:
+        assert not marks[:, 0].any()
+
+
+@pytest.fixture(scope="module")
+def forest_kd():
+    """The teapot cut into a forest (treelet_cap=16: several treelets
+    and a real top tree), on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    tv, tn = load_mesh_asset("teapot")
+    cfg = T.Config(MaxPrims=96, leaf_chunk_lanes=48, treelet_cap=16)
+    b = T.SceneBuilder()
+    b.add_mesh(tv, tn)
+    kd = b.build(cfg, device="cuda").kd
+    assert kd.tre_tbl is not None and kd.tre_tbl.shape[0] > 1
+    return tv, kd, ttrav._stack_depth(kd, cfg)
+
+
+def _walks(teapot_kd, forest_kd):
+    """(name, wrapper, its launch counts, kd, depth, its plain walk)."""
+    _, kd, depth = teapot_kd
+    _, fkd, fdepth = forest_kd
+    return [("mega", mega.mega_traverse, mega.launches, kd, depth, ttrav.traverse_plain),
+            ("forest", forest.forest_traverse, forest.launches, fkd, fdepth, ttrav.traverse_forest_plain)]
+
+
+@pytest.mark.parametrize("case", ["unclipped", "clipped", "inside"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_walk_kernels_match_plain_walks(teapot_kd, forest_kd, case, any_hit):
+    """The mega and forest kernels vs their plain walks and vs the packet
+    kernel (the same leaf test and visit order)."""
+    o, d, t_max = make_rays(case, seed=8)
+    mode = "any_hit" if any_hit else "closest"
+    for name, walk, counts, kd, depth, plain in _walks(teapot_kd, forest_kd):
+        before = counts[mode]
+        tk, pk, fk = walk(kd, o, d, t_max, depth, any_hit)
+        assert counts[mode] == before + 1, name
+        tp, pp, fp = plain(kd, o, d, t_max, depth, any_hit)
+        tq, pq, fq = packet.packet_traverse(kd, o, d, t_max, depth, any_hit)
+        assert torch.equal(fk, fp) and torch.equal(fk, fq), name
+        if not any_hit:
+            hit = fp & (tp < t_max)
+            assert int(hit.sum()) > N // 8
+            assert torch.equal(tk[hit], tp[hit]) and torch.equal(pk[hit], pp[hit]), name
+            assert torch.equal(tk, tq) and torch.equal(pk, pq), name
+
+
+def test_walk_wrappers_reject_missing_tables(teapot_kd, forest_kd):
+    o, d, t_max = make_rays("unclipped", seed=6)
+    before = dict(mega.launches), dict(forest.launches)
+    for name, walk, _, kd, depth, _ in _walks(teapot_kd, forest_kd):
+        tables = ["block_g", "block_tris", "block_orig"] + (["tre_tbl", "top_tbl"] if name == "forest" else [])
+        for table in tables:
+            with pytest.raises(ValueError, match=table):
+                walk(dataclasses.replace(kd, **{table: None}), o, d, t_max, depth, False)
+    assert (dict(mega.launches), dict(forest.launches)) == before
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_walk_stats_build_gives_the_same_result(teapot_kd, forest_kd, any_hit):
+    o, d, t_max = make_rays("clipped", seed=9)
+    for name, walk, _, kd, depth, _ in _walks(teapot_kd, forest_kd):
+        ref = walk(kd, o, d, t_max, depth, any_hit)
+        stats, touched = _stats_outputs(kd)
+        got = walk(kd, o, d, t_max, depth, any_hit, stats=stats, touched=touched)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), name
+        _check_stats(kd, stats, touched, aabb=False)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_kernels_match_plain_walks_on_the_cpu(teapot_kd, forest_kd, any_hit):
+    """Every kernel on the card gives the bits of its plain walk on the
+    CPU, on the same tables and rays."""
+    o, d, t_max = make_rays("clipped", seed=10)
+    cpu = lambda x: x.cpu()
+    walks = [("packet", packet.packet_traverse, *teapot_kd[1:], ttrav.traverse_plain)]
+    walks += [(name, walk, kd, depth, plain) for name, walk, _, kd, depth, plain in _walks(teapot_kd, forest_kd)]
+    for name, walk, kd, depth, plain in walks:
+        kd_cpu = dataclasses.replace(kd, **{f.name: cpu(getattr(kd, f.name)) for f in dataclasses.fields(kd)
+                                            if isinstance(getattr(kd, f.name), torch.Tensor)})
+        got = walk(kd, o, d, t_max, depth, any_hit)
+        ref = plain(kd_cpu, cpu(o), cpu(d), cpu(t_max), depth, any_hit)
+        assert bool(ref[2].any()), name
+        assert torch.equal(got[2].cpu(), ref[2]), name
+        if not any_hit:
+            for a, b in zip(got[:2], ref[:2]):
+                assert torch.equal(a.cpu(), b), name

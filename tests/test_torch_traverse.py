@@ -135,7 +135,13 @@ def test_backend_and_node_table(teapot_pair):
     kd = tscene.kd
     for name in ("auto", "packet"):
         assert ttrav._backend(kd, T.Config(traversal_backend=name)) == "packet"
-    for name in ("xla", "binned", "mega", "forest"):
+    # a tree of <= 1024 nodes without treelet tables: both per-ray walks
+    # resolve to mega, as in the JAX package (tests/test_torch_walks.py
+    # holds every name against the JAX dispatch)
+    assert kd.tre_tbl is None
+    for name in ("mega", "forest"):
+        assert ttrav._backend(kd, T.Config(traversal_backend=name)) == "mega"
+    for name in ("xla", "binned"):
         with pytest.raises(NotImplementedError):
             ttrav._backend(kd, T.Config(traversal_backend=name))
     assert ttrav._stack_depth(kd, tcfg) == min(64, kd.max_depth + 1)
