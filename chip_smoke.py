@@ -6,8 +6,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printed with its elapsed seconds as it ends:
   1. the card (nvidia-smi name and power limit) and the torch version;
   2. build of the CUDA kernels from csrc/ with plain nvcc, one process per
-     source, all at once: packet_traverse.cu (packet kernel) and
-     kd_walk.cu (mega and forest walks);
+     source, all at once: packet_traverse.cu (packet kernel), kd_walk.cu
+     (mega and forest walks), block_loop.cu (the binned walk's leaf stage),
+     mt_closest.cu and plucker_closest.cu (brute force);
   3. the reference scene from config.ini (1920x1080): 16 spheres, 6 walls,
      the cylinder, the teapot (6,320 triangles), 9 lights, 10 bounces, with
      the kd-tree shape MaxPrims=96, leaf_chunk_lanes=48;
@@ -16,10 +17,11 @@ Phases, each printed with its elapsed seconds as it ends:
      just before the timed frame and read just after; the image must be
      finite, of the right shape and not black; a 64x32 frame on the card
      must match the CPU path;
-  5. parity of the packet and mega kernels against the plain walk and
-     brute force, on the triangle queries at bounce 0 and a later bounce of
-     the ray tile whose primary rays hit the teapot most, and on the shadow
-     rays of those bounces; the mega kernel also against the packet kernel;
+  5. parity of the packet and mega kernels and of the binned walk against
+     the plain walk and brute force, on the triangle queries at bounce 0
+     and a later bounce of the ray tile whose primary rays hit the teapot
+     most, and on the shadow rays of those bounces; the mega kernel and the
+     binned walk also against the packet kernel;
   6. the packet and mega kernels' time per launch at the main path's
      shapes, the plain walk's time on the same inputs, and the least time
      the card could take (see ``kernel_entry``: the bytes these inputs make
@@ -27,31 +29,54 @@ Phases, each printed with its elapsed seconds as it ends:
      tests over 67 TFLOP/s, whichever is larger);
   7. the teapot frame with traversal_backend='mega' (the mega kernel),
      timed once, against the frame of phase 4: u8 channels off by > 1;
-  8. the flagship scene of bench.py: the procedural dragon (869,952
+  8. the teapot frame with traversal_backend='binned' (the block-loop
+     kernel), not cut, timed once, against the frame of phase 4: no u8
+     channel may be off by > 1; then the block-loop kernel's time per
+     launch, its plain version's and its bound over the launches of the
+     binned walks of phase 5's bounce-0 queries (``block_loop_entry``);
+  9. brute force: the Möller–Trumbore and Plücker kernels once each on the
+     2,073,600 primary rays of the 1080p teapot frame against its 6,320
+     triangles, held to their plain versions and the Plücker kernel to
+     brute force, their times, plain times and bounds (``brute_entry``),
+     and an fp32 torch.matmul of the Plücker product beside them; then the
+     teapot frame at 480x270 with brute_threshold=6320 through
+     triangle_backend 'jnp', 'pallas' (the Möller–Trumbore kernel) and
+     'plucker' (the Plücker kernel), and through the packet kernel;
+ 10. the flagship scene of bench.py: the procedural dragon (869,952
      triangles) at 1920x1080, MaxPrims=192, leaf_chunk_lanes=48, seed 0,
      built on the card; its load and build times and tree shape;
-  9. the flagship frame (backend 'auto': the packet kernel), one warm and
+ 11. the flagship frame (backend 'auto': the packet kernel), one warm and
      one timed frame, with the counts set to 0 around the timed one;
- 10. the same frame with traversal_backend='forest' (the forest kernel),
-     timed once, against the frame of phase 9;
- 11. parity of the packet and forest kernels against the plain forest
-     walk, the plain walk and brute force on 65,536 rays of the dragon tile
-     with the most bounce-0 dragon hits (brute force on 4,096 of them), at
+ 12. the same frame with traversal_backend='forest' (the forest kernel),
+     timed once, against the frame of phase 11;
+ 13. the same frame with traversal_backend='mega', which resolves to the
+     binned walk on this tree of 2,645 nodes (the resolution is printed),
+     the full frame, timed once, against the frame of phase 11;
+ 14. parity of the packet and forest kernels and of the binned walk
+     against the plain forest walk, the plain walk and brute force on
+     65,536 rays of the dragon tile with the most bounce-0 dragon hits, at
      bounce 0 and bounce 3 and on their shadow rays, and of the forest
-     kernel against the packet kernel;
- 12. the packet and forest kernels' times, plain times and bounds at the
+     kernel and the binned walk against the packet kernel.  Closest-hit
+     brute force is the Möller–Trumbore kernel, held first to the torch
+     brute force on 4,096 of the rays; any-hit brute force is torch on the
+     shadow rays of 4,096 points;
+ 15. the packet and forest kernels' times, plain times and bounds at the
      flagship's shapes (262,144 closest-hit and 2,359,296 any-hit rays of
-     one tile); then the ``kernels`` JSON line;
- 13. one profiled flagship frame: device time by kernel, the traversal
+     one tile), the whole binned walk of that tile and the block-loop
+     kernel's entries over its launches; then the ``kernels`` JSON line;
+ 16. one profiled flagship frame: device time by kernel, the traversal
      kernels' share of it, and the device's idle share, as one ``profile``
      line;
- 14. the result line ``{"ok": true, "device": {...}}``.
+ 17. the result line ``{"ok": true, "device": {...}}``.
 
 Parity rules.  Against the plain walks, and between kernels, the outputs
 must be equal bit for bit: the plain walks compute the kernels' leaf test
 (Plücker edge signs on block_g, then the Möller–Trumbore t on block_tris,
 every operation in the kernels' order) and their visit order, so hit masks
-are equal, and t and prims are equal wherever both hit.  Brute force is a
+are equal, and t and prims are equal wherever both hit.  The binned walk's
+any-hit t and prims must equal the plain walks' too (the same block-closest
+leaf stage; the per-ray kernels stop at a block's first hit slot, so only
+their any-hit bits are compared).  Brute force is a
 different function, Möller–Trumbore with its barycentric test over every
 triangle (after tests/test_packet.py): there a prim may differ at a tie
 (both candidates' t agree to rtol 1e-5), a hit mask or prim may differ on a
@@ -59,7 +84,10 @@ ray that meets the kernel's or the brute force's triangle within EDGE_EPS
 (barycentric) of an edge, on at most EDGE_SHARE of the rays, where the two
 inside tests disagree on a shared edge; at most 0.001% of the rays may
 differ in their hit mask otherwise, and t agrees to rtol 1e-3 where both
-hit and the ray is not excused.
+hit and the ray is not excused.  The Plücker kernel, whose t is num/den,
+is held to brute force with ``tests/test_pallas.py``'s rule: hit masks
+equal and indices equal where both hit, but for ties and EDGE_SHARE of the
+rays at an edge, and t to rtol 1e-4.
 
 Any failed check raises and the script exits non-zero without a result
 line; so does a run without a CUDA device or without the package beside it.
@@ -82,20 +110,32 @@ KERNELS = {  # kernel -> (source in the repo, the TPU kernel it replaces)
                   "dod_raytracer_tpu/ops/pallas/traverse_kernel.py:289"),
     "forest_walk": ("dod_raytracer_tpu_torch/csrc/kd_walk.cu",
                     "dod_raytracer_tpu/ops/pallas/forest_kernel.py:343"),
+    "block_loop": ("dod_raytracer_tpu_torch/csrc/block_loop.cu",
+                   "dod_raytracer_tpu/ops/pallas/block_loop_kernel.py:143"),
+    "mt_closest": ("dod_raytracer_tpu_torch/csrc/mt_closest.cu",
+                   "dod_raytracer_tpu/ops/pallas/mt_kernel.py:118"),
+    "plucker_closest": ("dod_raytracer_tpu_torch/csrc/plucker_closest.cu",
+                        "dod_raytracer_tpu/ops/pallas/plucker_kernel.py:117"),
 }
+SOURCES = ["packet_traverse", "kd_walk", "block_loop", "mt_closest", "plucker_closest"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 LATER_BOUNCE = 3
 SHADOW_POINTS = 65536  # hit points per parity bounce whose shadow rays are checked
 DRAGON_PARITY_RAYS = 65536  # rays of the dragon parity window
-DRAGON_BRUTE_RAYS = 4096  # of those, checked by brute force over 869,952 triangles
+DRAGON_BRUTE_RAYS = 4096  # of those, the torch brute force's share over 869,952 triangles
 # against brute force only (the plain walks and the kernels must agree bit for bit)
 MASK_AGREEMENT = 0.99999  # hit masks, away from ties and edges
 T_RTOL = 1e-3  # t where both hit (tests/test_packet.py)
 TIE_RTOL = 1e-5  # a prim may differ at a tie (tests/test_packet.py:49-63)
 EDGE_EPS = 1e-3  # or on a ray that meets a triangle this close to an edge (barycentric units),
 EDGE_SHARE = 1e-3  # on at most this share of the rays (rounded up)
-RAY_CHUNK = 32768  # rays per brute-force call (bounds its (rays, 2048, 3) temporaries)
+RAY_CHUNK = 32768  # rays per torch brute-force call (bounds its (rays, 2048, 3) temporaries)
+PLUCKER_T_RTOL = 1e-4  # the Plücker kernel's t against brute force (tests/test_pallas.py)
+BRUTE_PARITY_RAYS = 65536  # of the 1080p primary rays, held to the plain versions and brute force
+BRUTE_FRAME = dict(Width=480, Height=270, ray_tile=16384, brute_threshold=6320)  # phase 9
+MT_OPS = 46  # fp32 operations per ray-triangle pair, mt_closest.cu (27 mul, 18 add, 1 rcp)
+PLUCKER_OPS = 46  # plucker_closest.cu (25 mul, 20 add, 1 div)
 U8_TOLERANCE = 0.01  # golden tolerance: fraction of u8 channels off by > 1
 
 _T0 = time.perf_counter()
@@ -156,9 +196,9 @@ def main(device: str = "cuda") -> int:
 
     from dod_raytracer_tpu_torch import Config, default_scene, quantize_u8, render_image
     from dod_raytracer_tpu_torch.intersect import closest_families, closest_hit, occluded_families
-    from dod_raytracer_tpu_torch.ops import _cuda, forest, mega, packet
-    from dod_raytracer_tpu_torch.ops.traverse import (_stack_depth, traverse_forest_plain,
-                                                      traverse_plain)
+    from dod_raytracer_tpu_torch.ops import _cuda, binned, forest, mega, mt, packet, plucker
+    from dod_raytracer_tpu_torch.ops.traverse import (_PLAIN_CHUNK, _backend, _stack_depth, leaf_plain,
+                                                      traverse_forest_plain, traverse_plain)
     from dod_raytracer_tpu_torch.ops.triangle import (brute_force_closest, mt_single,
                                                       occluded_triangles_brute)
     from dod_raytracer_tpu_torch.render import frame_rays
@@ -171,29 +211,31 @@ def main(device: str = "cuda") -> int:
         "mega_walk": (mega, mega.mega_traverse, traverse_plain),
         "forest_walk": (forest, forest.forest_traverse, traverse_forest_plain),
     }
+    counters = {"packet_traverse": packet, "mega_walk": mega, "forest_walk": forest, "block_loop": binned,
+                "mt_closest": mt, "plucker_closest": plucker}  # kernel -> the module that counts it
 
     def reset_counts():
-        for module, _, _ in walks.values():
+        for module in counters.values():
             module.reset_launches()
 
     def read_counts():
-        return {k: dict(module.launches) for k, (module, _, _) in walks.items()}
+        return {k: dict(module.launches) for k, module in counters.items()}
 
-    def frame(scene, cfg, path: str, only: str):
+    def frame(scene, cfg, path: str, only, modes=("closest", "any_hit")):
         """One timed frame of the main path ``path``: every count set to 0
-        just before it and read just after; only kernel ``only`` may have
-        launched, in both modes."""
+        just before it and read just after; only kernel ``only`` (None: no
+        kernel) may have launched, in each of ``modes``."""
         reset_counts()
         seconds, img = wall_s(torch, lambda: render_image(scene, cfg, device=dev))
         counts = read_counts()
-        check(counts[only]["closest"] > 0 and counts[only]["any_hit"] > 0,
-              f"{path}: {only} not launched in both modes: {counts}")
+        check(only is None or all(counts[only][m] > 0 for m in modes),
+              f"{path}: {only} not launched in modes {modes}: {counts}")
         check(all(sum(c.values()) == 0 for k, c in counts.items() if k != only),
               f"{path}: another kernel launched: {counts}")
         check(tuple(img.shape) == (cfg.Height, cfg.Width, 3), f"{path}: frame shape {tuple(img.shape)}")
         check(bool(torch.isfinite(img).all()), f"{path}: frame has non-finite values")
         check(float(img.mean()) > 0.01, f"{path}: frame is black (mean {float(img.mean())})")
-        return seconds, img, counts[only]
+        return seconds, img, counts[only] if only else {}
 
     # ---- 1. the card ----
     card = card_line()
@@ -203,13 +245,13 @@ def main(device: str = "cuda") -> int:
 
     # ---- 2. kernel builds, in parallel ----
     t = time.perf_counter()
-    builds = _cuda.build_all(["packet_traverse", "kd_walk"], force=True)
+    builds = _cuda.build_all(SOURCES, force=True)
     for b in builds:
         for line in b["log"].splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 print(f"  ptxas {b['name']}:", line.strip(), flush=True)
-    packet._fn()
-    mega._fn()
+    for module in (packet, mega, binned, mt, plucker):
+        module._fn()
     log("phase 2 build: " + ", ".join(f"{b['name']}.cu nvcc {b['seconds']:.2f} s -> "
                                       f"{os.path.relpath(b['path'], ROOT)}" for b in builds)
         + f"; {time.perf_counter() - t:.2f} s wall")
@@ -268,14 +310,14 @@ def main(device: str = "cuda") -> int:
         tri = verts[prim.long()]
         return mt_single(tri, o, d, torch.ones(o.shape[0], dtype=torch.bool, device=dev))[0]
 
-    def closest_refs(kd, verts, depth, o, d, tt, plains, n_brute):
+    def closest_refs(kd, verts, depth, o, d, tt, plains, n_brute, brute=brute_closest):
         """Reference (t, prim, hit) of a closest-hit query: each plain walk
-        on all rays, brute force on the first n_brute."""
+        on all rays, brute force (``brute``) on the first n_brute."""
         refs = {}
         for name, walk in plains.items():
             tp, pp, fp = walk(kd, o, d, tt, depth, False)
             refs[name] = (tp, pp, fp & (tp < tt), o.shape[0])
-        tb, pb = brute_closest(verts, o[:n_brute], d[:n_brute])
+        tb, pb = brute(verts, o[:n_brute], d[:n_brute])
         refs["brute"] = (tb, pb, tb < tt[:n_brute], n_brute)
         return refs
 
@@ -356,6 +398,16 @@ def main(device: str = "cuda") -> int:
             check(ok, f"{kname} any-hit parity {label} vs {name}: {r}")
         log(f"phase parity {kname} any-hit {label}: {json.dumps(res)}")
         return res
+
+    def check_any_t_prim(label, out, plain_outs):
+        """The binned walk's any-hit t and prim against each plain walk's,
+        bit for bit: both take the closest hit of the block where a ray
+        first hits (the per-ray kernels stop at that block's first hit
+        slot, so only their hit bits are compared)."""
+        for name, ref in plain_outs.items():
+            nt, np_ = int((out[0] != ref[0]).sum()), int((out[1] != ref[1]).sum())
+            check(nt == 0 and np_ == 0, f"binned walk any-hit {label} vs {name}: {nt} t and {np_} prims differ")
+        log(f"phase parity binned walk any-hit {label}: t and prim equal to {', '.join(plain_outs)} bit for bit")
 
     def plain_err(par, mode, plains):
         """A kernel's ``max_abs_err`` against its plain versions over both
@@ -449,14 +501,99 @@ def main(device: str = "cuda") -> int:
             f"{tri_slots} of block_tris, {aabb_blocks} block AABBs")
         return entry
 
-    # ---- 5. teapot parity: packet and mega ----
+    def bound(nbytes, flops):
+        """(the least time in ms, what bounds it) of work that moves
+        ``nbytes`` and does ``flops`` fp32 operations."""
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def binned_walk(kd, inputs, depth, any_hit):
+        """One binned walk -> (its seconds, its result, the (o, d, keys) of
+        each block-loop launch it made, in order)."""
+        launched = []
+        launch = binned._launch
+
+        def record(kd_, o_, d_, keys, mode):
+            launched.append((o_, d_, keys))
+            return launch(kd_, o_, d_, keys, mode)
+
+        binned._launch = record
+        try:
+            seconds, out = wall_s(torch, lambda: binned.binned_traverse(kd, *inputs, depth, any_hit))
+        finally:
+            binned._launch = launch
+        return seconds, out, launched
+
+    def block_loop_entry(label, mode, kd, launched, walk_s, launches, extra):
+        """The block-loop kernel over the launches of one binned walk ->
+        one entry of the ``kernels`` line: the mean time per launch (the
+        walk's launches replayed, CUDA events, 20 times after 2 warm), the
+        plain version's (``leaf_plain`` on the same inputs, in chunks of
+        _PLAIN_CHUNK rays), and the mean bound per launch.  Each launch's
+        outputs must equal the plain version's bit for bit.
+
+        A launch's bound is the larger of its bytes over 3.35 TB/s (each
+        ray's o, d, key read and t, prim written once; rows 0-5 of
+        block_g's edge sections for the non-empty slots of the distinct
+        blocks it names, 18 floats; block_tris of the slots whose distance
+        was computed, 9 floats; block_orig of the distinct triangles
+        returned) and its fp32 operations over 67 TFLOP/s (33 per edge-sign
+        test of a non-empty slot, 33 per distance), both counted by the
+        kernel's measurement-only build."""
+        count = len(launched)
+        ms = time_ms(torch, lambda: [binned._launch(kd, *x, "closest") for x in launched], 20) / count
+        B, S = kd.block_orig.shape
+        plain_s, err, rays, bounds, totals = 0.0, 0.0, 0, [], [0, 0, 0, 0]
+        for lo, ld, lk in launched:
+            n = lo.shape[0]
+            rays += n
+            tk, pk = binned.block_loop_intersect(kd, lo, ld, lk)
+            for s0 in range(0, n, _PLAIN_CHUNK):
+                part = slice(s0, s0 + _PLAIN_CHUNK)
+                sec, (tp, pp) = wall_s(torch, lambda: leaf_plain(kd, lo[part], ld[part], lk[part]))
+                plain_s += sec
+                hit = torch.isfinite(tp)
+                check(torch.equal(tk[part], tp) and torch.equal(pk[part], pp),
+                      f"block_loop {label}: {int((tk[part] != tp).sum())} t and {int((pk[part] != pp).sum())} "
+                      f"prims differ from its plain version")
+                if bool(hit.any()):
+                    err = max(err, float((tk[part] - tp)[hit].abs().max()))
+            stats = torch.zeros((n, 2), dtype=torch.int32, device=dev)
+            touched = torch.zeros((B, 2 + S), dtype=torch.int32, device=dev)
+            binned.block_loop_intersect(kd, lo, ld, lk, stats=stats, touched=touched)
+            slots, distances = (int(x) for x in stats.sum(0, dtype=torch.int64))
+            g_slots = int((kd.block_orig[touched[:, 1] > 0] >= 0).sum())
+            tri_slots = int(touched[:, 2:].sum(dtype=torch.int64))
+            winners = int(torch.unique(pk[torch.isfinite(tk)]).numel())
+            nbytes = n * (12 + 12 + 4) + n * 8 + g_slots * 18 * 4 + tri_slots * 9 * 4 + winners * 4
+            bounds.append(bound(nbytes, (slots + distances) * 33))
+            for i, v in enumerate((nbytes, slots, distances, g_slots)):
+                totals[i] += v
+        by_bytes = sum(1 for _, by in bounds if by == "bytes")
+        source, replaces = KERNELS["block_loop"]
+        entry = dict(name=f"block_loop[{mode}{label}]", route="cuda", source=source, replaces=replaces,
+                     launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3 / count,
+                     bound_ms=sum(b for b, _ in bounds) / count,
+                     bound_by="bytes" if by_bytes * 2 > count else "operations", library_ms=None,
+                     walk_launches=count, walk_s=walk_s, rays_per_launch=rays / count,
+                     bytes=totals[0], operations=(totals[1] + totals[2]) * 33, slots_tested=totals[1],
+                     distances=totals[2], block_g_slots_read=totals[3], **extra)
+        log(f"phase times block_loop[{mode}{label}]: a {walk_s:.3f} s walk of {count} launches, "
+            f"{rays / count:.0f} rays each on average; {ms:.4f} ms/launch (plain {entry['plain_ms']:.2f} ms), "
+            f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}: {totals[0]} bytes, "
+            f"{entry['operations']} operations in all), {totals[1]} non-empty slots edge-tested, "
+            f"{totals[2]} distances; equal to its plain version on every launch")
+        return entry
+
+    # ---- 5. teapot parity: packet, mega and binned ----
     depth = _stack_depth(kd, cfg)
     verts = scene.triangles.verts
     plains = {"plain": traverse_plain}
     o_all, d_all, raw_all, tile, start = best_window(scene, cfg, packet.packet_traverse, depth)
     o, d, raw = (x[start:start + tile] for x in (o_all, d_all, raw_all))
     log(f"phase 5 parity tile: rays [{start}, {start + tile}) of {o_all.shape[0]}")
-    parity = {"packet_traverse": {}, "mega_walk": {}}
+    parity = {"packet_traverse": {}, "mega_walk": {}, "block_loop": {}}
     timing_inputs = {}
     for k, (qo, qd, qt), (so, sd, st) in bounces(scene, cfg, o, d, raw, (0, LATER_BOUNCE), tile):
         refs = closest_refs(kd, verts, depth, qo, qd, qt, plains, qo.shape[0])
@@ -467,6 +604,9 @@ def main(device: str = "cuda") -> int:
         parity["mega_walk"][f"closest_b{k}"] = check_closest(
             f"bounce {k}", "mega_walk", mega.mega_traverse(kd, qo, qd, qt, depth, False), refs, verts,
             qo, qd, qt)
+        parity["block_loop"][f"closest_b{k}"] = check_closest(
+            f"bounce {k}", "binned walk", binned.binned_traverse(kd, qo, qd, qt, depth, False), refs, verts,
+            qo, qd, qt)
         if k == 0:
             timing_inputs["closest"] = (qo, qd, qt)
             timing_inputs["any_hit"] = (so, sd, st)
@@ -475,7 +615,8 @@ def main(device: str = "cuda") -> int:
         sel = torch.cat([torch.arange(li * tile, li * tile + n_sub, device=dev)
                          for li in range(scene.lights.position.shape[0])])
         so, sd, st = so[sel].contiguous(), sd[sel].contiguous(), st[sel].contiguous()
-        arefs = {"plain": (*traverse_plain(kd, so, sd, st, depth, True)[1:], so.shape[0]),
+        aplain = traverse_plain(kd, so, sd, st, depth, True)
+        arefs = {"plain": (*aplain[1:], so.shape[0]),
                  "brute": (None, brute_any(verts, so, sd, st), so.shape[0])}
         pk = packet.packet_traverse(kd, so, sd, st, depth, True)
         parity["packet_traverse"][f"any_b{k}"] = check_any(f"bounce {k}", "packet_traverse", pk, arefs,
@@ -483,6 +624,9 @@ def main(device: str = "cuda") -> int:
         arefs["packet"] = (*pk[1:], so.shape[0])
         parity["mega_walk"][f"any_b{k}"] = check_any(
             f"bounce {k}", "mega_walk", mega.mega_traverse(kd, so, sd, st, depth, True), arefs, verts, so, sd)
+        bk = binned.binned_traverse(kd, so, sd, st, depth, True)
+        parity["block_loop"][f"any_b{k}"] = check_any(f"bounce {k}", "binned walk", bk, arefs, verts, so, sd)
+        check_any_t_prim(f"bounce {k}", bk, {"plain": aplain})
     log("phase 5 parity done")
 
     # ---- 6. teapot kernel times and bounds ----
@@ -510,9 +654,129 @@ def main(device: str = "cuda") -> int:
             e["launches"] = mega_counts[e["name"].split("[")[1][:-1]]
     log(f"phase 7 mega frame: {mega_s:.3f} s, launches {mega_counts}, vs packet frame: "
         f"{mega_off:.6%} of u8 channels off by > 1, max abs diff {float((mega_img - img).abs().max()):.3g}")
-    del img, mega_img
+    del mega_img
 
-    # ---- 8. the flagship scene: bench.py's dragon ----
+    # ---- 8. the teapot frame through the binned walk (block-loop kernel) ----
+    bcfg = Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48, ray_tile=0,
+                       traversal_backend="binned")
+    binned_s, binned_img, binned_counts = frame(scene, bcfg, "teapot binned frame", "block_loop")
+    binned_off = u8_off(quantize_u8, binned_img, img)
+    check(binned_off == 0.0, f"binned teapot frame: {binned_off:.4%} of u8 channels off by > 1 "
+                             "from the packet frame (the same leaf test: none may be)")
+    log(f"phase 8 binned frame (full 1920x1080, not cut): {binned_s:.3f} s, launches per frame {binned_counts}, "
+        f"vs packet frame: {binned_off:.6%} of u8 channels off by > 1, "
+        f"max abs diff {float((binned_img - img).abs().max()):.3g}")
+    del img, binned_img
+    for mode in ("closest", "any_hit"):
+        key = "closest" if mode == "closest" else "any"
+        walk_s, _, launched = binned_walk(kd, timing_inputs[mode], depth, mode == "any_hit")
+        par = parity["block_loop"]
+        kernels.append(block_loop_entry("", mode, kd, launched, walk_s, binned_counts[mode], dict(
+            scene="teapot", frame_s=binned_s, parity={"bounce0": par[f"{key}_b0"],
+                                                      f"bounce{LATER_BOUNCE}": par[f"{key}_b{LATER_BOUNCE}"]})))
+        del launched
+    log("phase 8 block-loop kernel times")
+
+    # ---- 9. brute force: the Möller–Trumbore and Plücker kernels ----
+    o_f, d_f, _, n_f, _ = frame_rays(cfg, dev)
+    o_f, d_f = o_f[:n_f].contiguous(), d_f[:n_f].contiguous()
+    n_tri = verts.shape[0]
+    soa, gpk = mt.swizzle_tris(verts), plucker.plucker_pack(verts)
+    bo, bd = (x[start:start + BRUTE_PARITY_RAYS].contiguous() for x in (o_all, d_all))
+    brute_entries = {}
+    for name, module, wrapper, plain, packed, ops in (
+            ("mt_closest", mt, mt.mt_closest, mt.mt_closest_plain, soa, MT_OPS),
+            ("plucker_closest", plucker, plucker.plucker_closest, plucker.plucker_closest_plain, gpk, PLUCKER_OPS)):
+        tk, ik = wrapper(packed, o_f, d_f)
+        ms = time_ms(torch, lambda: wrapper(packed, o_f, d_f), 20)
+        plain_s, err, hits = 0.0, 0.0, 0
+        for s0 in range(0, n_f, BRUTE_PARITY_RAYS):  # the plain version on every ray, in chunks
+            part = slice(s0, s0 + BRUTE_PARITY_RAYS)
+            sec, (tp, ip) = wall_s(torch, lambda: plain(packed, o_f[part], d_f[part]))
+            plain_s += sec
+            check(torch.equal(tk[part], tp) and torch.equal(ik[part], ip),
+                  f"{name}: rays [{s0}, {s0 + BRUTE_PARITY_RAYS}) differ from its plain version: "
+                  f"{int((tk[part] != tp).sum())} t, {int((ik[part] != ip).sum())} indices")
+            hit = torch.isfinite(tp)
+            hits += int(hit.sum())
+            if bool(hit.any()):
+                err = max(err, float((tk[part] - tp)[hit].abs().max()))
+        b_ms, b_by = bound(packed.numel() * 4 + n_f * (24 + 8), ops * n_f * n_tri)
+        source, replaces = KERNELS[name]
+        brute_entries[name] = dict(
+            name=f"{name}[closest]", route="cuda", source=source, replaces=replaces, launches=None,
+            max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            rays=n_f, triangles=n_tri, pairs=n_f * n_tri, operations=ops * n_f * n_tri, hits=hits,
+            scene="teapot, 1080p primary rays")
+        log(f"phase 9 {name}: {n_f} rays x {n_tri} triangles, {ms:.3f} ms/launch (plain {plain_s * 1e3:.1f} ms "
+            f"in {BRUTE_PARITY_RAYS}-ray chunks), bound {b_ms:.4f} ms ({b_by}), {hits} hits, "
+            f"equal to its plain version on all {n_f} rays")
+        del tk, ik
+    # the Plücker kernel against brute force (tests/test_pallas.py's rule, ties and edges excused)
+    tp, ip = plucker.plucker_closest(gpk, bo, bd)
+    tb, ib = brute_force_closest(verts, bo, bd)
+    hp, hb = torch.isfinite(tp), torch.isfinite(tb)
+    both = hp & hb
+    flip = both & (ip != ib)
+    tie = torch.zeros_like(flip)
+    if bool(flip.any()):
+        tie[flip] = (mt_t_of(verts, ip[flip], bo[flip], bd[flip]) - mt_t_of(verts, ib[flip], bo[flip], bd[flip])
+                     ).abs() <= TIE_RTOL * tb[flip].abs()
+    differ = (hp != hb) | (flip & ~tie)
+    edge = differ & at_edge(verts, bo, bd, differ & hp, ip, differ & hb, ib)
+    t_bad = both & ~flip & ((tp - tb).abs() > PLUCKER_T_RTOL * tb.abs())
+    pres = dict(rays=BRUTE_PARITY_RAYS, hits=int(hb.sum()), mask_mismatch=int((hp != hb).sum()),
+                prim_flips=int(flip.sum()), ties=int(tie.sum()), at_edge=int(edge.sum()),
+                unexplained=int((differ & ~edge).sum()), t_out_of_rtol=int(t_bad.sum()),
+                max_rel_t_err=float(((tp - tb).abs() / tb.abs())[both & ~flip].max()) if bool(both.any()) else 0.0)
+    check(pres["at_edge"] <= edge_allowed(BRUTE_PARITY_RAYS) and pres["unexplained"] == 0
+          and pres["t_out_of_rtol"] == 0, f"plucker_closest vs brute force: {pres}")
+    brute_entries["plucker_closest"]["parity_vs_brute_force"] = pres
+    log(f"phase 9 plucker_closest vs brute force on {BRUTE_PARITY_RAYS} rays of the parity tile: {json.dumps(pres)}")
+    # what a tensor-core design of the Plücker kernel has to beat: the fp32
+    # product (N, 16) @ (16, 5 T') alone, TF32 off, in chunks of rays
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = plucker.swizzle_rays_plucker(o_f, d_f, 1)[0]
+    g16 = torch.nn.functional.pad(gpk.permute(1, 0, 2).reshape(10, -1), (0, 0, 0, 6)).contiguous()
+    prod = torch.empty((BRUTE_PARITY_RAYS, g16.shape[1]), device=dev)
+
+    def matmul_all():
+        for s0 in range(0, n_f, BRUTE_PARITY_RAYS):
+            r = rows[s0:s0 + BRUTE_PARITY_RAYS]
+            torch.matmul(r, g16, out=prod[:r.shape[0]])
+
+    mm_ms = time_ms(torch, matmul_all, 5)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    brute_entries["plucker_closest"]["fp32_matmul_ms"] = mm_ms
+    log(f"phase 9 fp32 torch.matmul ({n_f}, 16) @ (16, {g16.shape[1]}) in {BRUTE_PARITY_RAYS}-row chunks, TF32 off: "
+        f"{mm_ms:.3f} ms, beside the Plücker kernel's {brute_entries['plucker_closest']['ms']:.3f} ms")
+    del rows, prod, o_f, d_f
+    # the 480x270 teapot frame through each brute-force path, and the packet frame
+    bc = Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48, **BRUTE_FRAME)
+    bscene = default_scene(seed=0, cfg=bc, mesh="teapot").build(bc, device=dev)
+    bframes = {}
+    for backend, only in (("jnp", None), ("pallas", "mt_closest"), ("plucker", "plucker_closest")):
+        bc = Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48,
+                         triangle_backend=backend, **BRUTE_FRAME)
+        bframes[backend] = frame(bscene, bc, f"480x270 brute-force frame ({backend})", only, ("closest",))
+        if only:
+            brute_entries[only]["launches"] = bframes[backend][2]["closest"]
+    pc = Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48,
+                     **{k: v for k, v in BRUTE_FRAME.items() if k != "brute_threshold"})
+    bpk_s, bpk_img, bpk_counts = frame(bscene, pc, "480x270 packet frame", "packet_traverse")
+    check(torch.equal(bframes["pallas"][1], bframes["jnp"][1]),
+          "480x270: the 'pallas' frame differs from the 'jnp' frame")
+    offs = {b: u8_off(quantize_u8, bframes[b][1], bpk_img) for b in ("pallas", "plucker")}
+    check(all(v < U8_TOLERANCE for v in offs.values()), f"480x270 brute-force frames vs packet frame: {offs}")
+    log("phase 9 480x270 frames, 10 bounces, brute_threshold=6320: "
+        + ", ".join(f"{b} {bframes[b][0]:.3f} s (launches {bframes[b][2]})" for b in bframes)
+        + f", packet {bpk_s:.3f} s (launches {bpk_counts}); 'pallas' equals 'jnp' bit for bit; "
+        f"u8 channels off by > 1 from the packet frame: {offs}")
+    kernels += list(brute_entries.values())
+    del bframes, bpk_img, bscene
+
+    # ---- 10. the flagship scene: bench.py's dragon ----
     fcfg = Config(Width=1920, Height=1080, use_kdtree=True, ray_tile=0, MaxPrims=192, leaf_chunk_lanes=48)
     t = time.perf_counter()
     builder = default_scene(seed=0, cfg=fcfg, mesh="dragon")
@@ -522,42 +786,69 @@ def main(device: str = "cuda") -> int:
     check(dkd.tre_tbl is not None and dkd.top_tbl is not None, "dragon tree has no treelet tables")
     dM = dkd.node_flag.shape[0]
     dB, dS = dkd.block_orig.shape
-    log(f"phase 8 dragon scene: {dscene.n_triangles} triangles, load {load_s:.2f} s, host build + upload "
+    log(f"phase 10 dragon scene: {dscene.n_triangles} triangles, load {load_s:.2f} s, host build + upload "
         f"{build_s:.2f} s, {dM} nodes ({int((dkd.node_flag == 3).sum())} leaves), depth {dkd.max_depth}, "
         f"{dB} blocks of {dS} slots ({float((dkd.block_orig >= 0).float().mean()):.1%} of slots hold a triangle), "
         f"{dkd.tre_tbl.shape[0]} treelets of {dkd.tre_tbl.shape[1]} rows, {dkd.top_tbl.shape[0]} top rows, "
         f"block_g {dkd.block_g.numel() * 4 / 1e6:.1f} MB")
 
-    # ---- 9. the flagship frame (auto: packet kernel) ----
+    # ---- 11. the flagship frame (auto: packet kernel) ----
     dwarm_s, _ = wall_s(torch, lambda: render_image(dscene, fcfg, device=dev))
     flag_s, flag_img, flag_counts = frame(dscene, fcfg, "dragon flagship frame", "packet_traverse")
-    log(f"phase 9 flagship frame: warm {dwarm_s:.3f} s, timed {flag_s:.3f} s, {pixels / flag_s:.0f} primary "
+    log(f"phase 11 flagship frame: warm {dwarm_s:.3f} s, timed {flag_s:.3f} s, {pixels / flag_s:.0f} primary "
         f"rays/s, mean {float(flag_img.mean()):.4f}, launches {read_counts()}")
 
-    # ---- 10. the flagship frame through the forest kernel ----
+    # ---- 12. the flagship frame through the forest kernel ----
     ffcfg = Config(Width=1920, Height=1080, use_kdtree=True, ray_tile=0, MaxPrims=192, leaf_chunk_lanes=48,
                    traversal_backend="forest")
     forest_s, forest_img, forest_counts = frame(dscene, ffcfg, "dragon forest frame", "forest_walk")
     forest_off = u8_off(quantize_u8, forest_img, flag_img)
     check(forest_off < U8_TOLERANCE, f"forest dragon frame: {forest_off:.4%} of u8 channels off by > 1")
-    log(f"phase 10 forest frame (full 1920x1080, not cut): {forest_s:.3f} s, launches {forest_counts}, "
+    log(f"phase 12 forest frame (full 1920x1080, not cut): {forest_s:.3f} s, launches {forest_counts}, "
         f"vs flagship frame: {forest_off:.6%} of u8 channels off by > 1, "
         f"max abs diff {float((forest_img - flag_img).abs().max()):.3g}")
-    del forest_img, flag_img
+    del forest_img
 
-    # ---- 11. forest parity on the dragon ----
+    # ---- 13. the flagship frame through "mega", which resolves to the binned walk ----
+    bmcfg = Config(Width=1920, Height=1080, use_kdtree=True, ray_tile=0, MaxPrims=192, leaf_chunk_lanes=48,
+                   traversal_backend="mega")
+    resolved = _backend(dkd, bmcfg)
+    check(resolved == "binned", f"traversal_backend='mega' on {dM} nodes resolved to {resolved!r}, not 'binned'")
+    dbin_s, dbin_img, dbin_counts = frame(dscene, bmcfg, "dragon binned frame", "block_loop")
+    dbin_off = u8_off(quantize_u8, dbin_img, flag_img)
+    check(dbin_off < U8_TOLERANCE, f"binned dragon frame: {dbin_off:.4%} of u8 channels off by > 1")
+    log(f"phase 13 traversal_backend='mega' on the dragon tree ({dM} nodes > 1024) resolves to {resolved!r}; "
+        f"binned frame (full 1920x1080, not cut): {dbin_s:.3f} s, launches per frame {dbin_counts}, "
+        f"vs flagship frame: {dbin_off:.6%} of u8 channels off by > 1, "
+        f"max abs diff {float((dbin_img - flag_img).abs().max()):.3g}")
+    del dbin_img, flag_img
+
+    # ---- 14. forest and binned parity on the dragon ----
     ddepth = _stack_depth(dkd, fcfg)
     dverts = dscene.triangles.verts
     dplains = {"forest_plain": traverse_forest_plain, "plain": traverse_plain}
     o_all, d_all, raw_all, dtile, wstart = best_window(dscene, fcfg, packet.packet_traverse, ddepth,
                                                         DRAGON_PARITY_RAYS)
     w = slice(wstart, wstart + DRAGON_PARITY_RAYS)
-    log(f"phase 11 parity window: rays [{wstart}, {wstart + DRAGON_PARITY_RAYS}) of {o_all.shape[0]}, "
+    log(f"phase 14 parity window: rays [{wstart}, {wstart + DRAGON_PARITY_RAYS}) of {o_all.shape[0]}, "
         f"in the {dtile}-ray tile at {wstart // dtile * dtile}")
-    dpar = {"packet_traverse": {}, "forest_walk": {}}
+    dpar = {"packet_traverse": {}, "forest_walk": {}, "block_loop": {}}
+    dsoa = mt.swizzle_tris(dverts)
+
+    def mt_brute(verts, o, d):
+        """Closest-hit brute force by the Möller–Trumbore kernel, held first
+        to the torch brute force on DRAGON_BRUTE_RAYS of the rays, bit for bit."""
+        tk, ik = mt.mt_closest(dsoa, o, d)
+        tb, ib = brute_closest(verts, o[:DRAGON_BRUTE_RAYS], d[:DRAGON_BRUTE_RAYS])
+        check(torch.equal(tk[:DRAGON_BRUTE_RAYS], tb) and torch.equal(ik[:DRAGON_BRUTE_RAYS], ib),
+              "mt_closest on the dragon differs from the torch brute force")
+        log(f"phase 14 mt_closest brute force on {o.shape[0]} rays x {verts.shape[0]} triangles, "
+            f"equal to the torch brute force on {DRAGON_BRUTE_RAYS} of them bit for bit")
+        return tk, ik
+
     for k, (qo, qd, qt), (so, sd, st) in bounces(dscene, fcfg, o_all[w], d_all[w], raw_all[w],
                                                  (0, LATER_BOUNCE), DRAGON_PARITY_RAYS):
-        refs = closest_refs(dkd, dverts, ddepth, qo, qd, qt, dplains, DRAGON_BRUTE_RAYS)
+        refs = closest_refs(dkd, dverts, ddepth, qo, qd, qt, dplains, DRAGON_PARITY_RAYS, mt_brute)
         pk = packet.packet_traverse(dkd, qo, qd, qt, ddepth, False)
         dpar["packet_traverse"][f"closest_b{k}"] = check_closest(
             f"bounce {k}", "packet_traverse", pk, refs, dverts, qo, qd, qt)
@@ -565,18 +856,27 @@ def main(device: str = "cuda") -> int:
         dpar["forest_walk"][f"closest_b{k}"] = check_closest(
             f"bounce {k}", "forest_walk", forest.forest_traverse(dkd, qo, qd, qt, ddepth, False), refs,
             dverts, qo, qd, qt)
+        dpar["block_loop"][f"closest_b{k}"] = check_closest(
+            f"bounce {k}", "binned walk", binned.binned_traverse(dkd, qo, qd, qt, ddepth, False), refs,
+            dverts, qo, qd, qt)
         # brute force on the shadow rays of the first DRAGON_BRUTE_RAYS points, per light
         L = dscene.lights.position.shape[0]
         sub = torch.cat([torch.arange(li * DRAGON_PARITY_RAYS, li * DRAGON_PARITY_RAYS + DRAGON_BRUTE_RAYS,
                                       device=dev) for li in range(L)])
         outs = {"packet_traverse": packet.packet_traverse(dkd, so, sd, st, ddepth, True),
-                "forest_walk": forest.forest_traverse(dkd, so, sd, st, ddepth, True)}
-        arefs = {name: (*walk(dkd, so, sd, st, ddepth, True)[1:], so.shape[0]) for name, walk in dplains.items()}
+                "forest_walk": forest.forest_traverse(dkd, so, sd, st, ddepth, True),
+                "block_loop": binned.binned_traverse(dkd, so, sd, st, ddepth, True)}
+        aplain = {name: walk(dkd, so, sd, st, ddepth, True) for name, walk in dplains.items()}
+        arefs = {name: (*out[1:], so.shape[0]) for name, out in aplain.items()}
         dpar["packet_traverse"][f"any_b{k}"] = check_any(f"bounce {k}", "packet_traverse",
                                                          outs["packet_traverse"], arefs, dverts, so, sd)
         arefs["packet"] = (*outs["packet_traverse"][1:], so.shape[0])
         dpar["forest_walk"][f"any_b{k}"] = check_any(f"bounce {k}", "forest_walk", outs["forest_walk"], arefs,
                                                      dverts, so, sd)
+        dpar["block_loop"][f"any_b{k}"] = check_any(f"bounce {k}", "binned walk", outs["block_loop"], arefs,
+                                                    dverts, so, sd)
+        check_any_t_prim(f"bounce {k}, dragon", outs["block_loop"], aplain)
+        del aplain
         so, sd, st = so[sub], sd[sub], st[sub]
         brefs = {"brute": (None, brute_any(dverts, so, sd, st), so.shape[0])}
         for kname, out in outs.items():
@@ -584,7 +884,7 @@ def main(device: str = "cuda") -> int:
                 f"bounce {k}, {DRAGON_BRUTE_RAYS} points per light", kname, [x[sub] for x in out], brefs,
                 dverts, so, sd))
 
-    # ---- 12. flagship kernel times and bounds ----
+    # ---- 15. flagship kernel times and bounds ----
     tstart = wstart // dtile * dtile
     td = next(bounces(dscene, fcfg, *(x[tstart:tstart + dtile] for x in (o_all, d_all, raw_all)), (0,), dtile))
     del o_all, d_all, raw_all
@@ -603,9 +903,17 @@ def main(device: str = "cuda") -> int:
             if name == "packet_traverse":
                 entry["name"] = f"packet_traverse[{mode},dragon]"
             kernels.append(entry)
-    log("phase 12 flagship kernel times")
+    for mode in ("closest", "any_hit"):  # the whole binned walk of the tile
+        key = "closest" if mode == "closest" else "any"
+        walk_s, _, launched = binned_walk(dkd, dinputs[mode], ddepth, mode == "any_hit")
+        par = dpar["block_loop"]
+        kernels.append(block_loop_entry(",dragon", mode, dkd, launched, walk_s, dbin_counts[mode], dict(
+            scene="dragon", frame_s=dbin_s, parity={"bounce0": par[f"{key}_b0"],
+                                                    f"bounce{LATER_BOUNCE}": par[f"{key}_b{LATER_BOUNCE}"]})))
+        del launched
+    log("phase 15 flagship kernel times")
 
-    # ---- 13. where one flagship frame's device time goes ----
+    # ---- 16. where one flagship frame's device time goes ----
     from torch.profiler import ProfilerActivity, profile
 
     reset_counts()
@@ -633,12 +941,13 @@ def main(device: str = "cuda") -> int:
             "top": [{"name": k[:90], "ms": v} for k, v in top]}}), flush=True)
     else:
         print(json.dumps({"profile": "not measured: the profiler recorded no device time"}), flush=True)
-    log("phase 13 profile")
+    log("phase 16 profile")
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"done: teapot frame {frame_s:.3f} s, dragon flagship frame {flag_s:.3f} s, dragon forest frame "
-        f"{forest_s:.3f} s, teapot mega frame {mega_s:.3f} s on {card}")
+        f"{forest_s:.3f} s, dragon binned frame {dbin_s:.3f} s, teapot mega frame {mega_s:.3f} s, "
+        f"teapot binned frame {binned_s:.3f} s on {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,9 @@ A Whitted ray tracer with the reference CPU tracer's semantics
 (AVassilev98/dod_raytracer, see SURVEY.md): wavefront ray batches, fused
 primitive intersection, a SAH kd tree walked by hand-written CUDA kernels
 (``csrc/packet_traverse.cu``; ``csrc/kd_walk.cu``, the mega and forest
-walks), Whitted shading with point lights and shadows.  Module names mirror ``dod_raytracer_tpu``; that JAX package is
+walks; ``csrc/block_loop.cu``, the binned walk's leaf stage), brute-force
+intersection kernels (``csrc/mt_closest.cu``, ``csrc/plucker_closest.cu``),
+Whitted shading with point lights and shadows.  Module names mirror ``dod_raytracer_tpu``; that JAX package is
 the reference the port is tested against, and nothing here imports it.
 
 Entry points run on the card by default (``device="cuda"``); pass

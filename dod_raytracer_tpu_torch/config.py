@@ -34,11 +34,17 @@ class Config:
     leaf_chunk_lanes: int = 8  # lanes per leaf block (one block per walk step)
     stack_depth: int = 64  # traversal worklist depth cap (kdtree.cpp:279)
     use_kdtree: bool = True
-    triangle_backend: str = "jnp"  # brute-force path: only 'jnp' (plain torch) is ported
-    # kd traversal backend (ops.traverse._backend): 'auto' and 'packet'
-    # -> the packet kernel; 'mega' and 'forest' -> the mega or forest
-    # kernel as the JAX package resolves them; 'xla' and 'binned' are not
-    # ported.  Each wrapper takes its plain walk on CPU tensors.
+    # brute-force closest hit (no kd tree, or <= brute_threshold triangles):
+    # 'jnp' plain torch, 'pallas' the Möller–Trumbore kernel (ops.mt),
+    # 'plucker' the Plücker kernel (ops.plucker); the kd walk ignores it
+    triangle_backend: str = "jnp"
+    # kd traversal backend (ops.traverse._backend), resolved as the JAX
+    # package resolves it: 'auto' and 'packet' -> the packet kernel;
+    # 'mega' -> the mega kernel, or the binned walk (block-loop kernel,
+    # ops.binned) on a tree of more than 1024 nodes; 'forest' -> the
+    # forest kernel on a tree with treelet tables, else as 'mega';
+    # 'binned'; 'xla' -> the gather walk in torch.  Each wrapper takes its
+    # plain version on CPU tensors.
     traversal_backend: str = "auto"
     treelet_cap: int = 0  # forest treelet node cap (0 = accel._kdtree_np.MAX_NODES)
     forest_tile: int = 0  # JAX TPU forest kernel's ray tile; no effect here

@@ -29,9 +29,6 @@ def _prefer_brute(scene, cfg) -> bool:
 def _check_triangle_knobs(cfg) -> None:
     if getattr(cfg, "tri_shard_axis", ""):
         raise NotImplementedError("leaf-sharded triangles are not ported yet")
-    if getattr(cfg, "triangle_backend", "jnp") != "jnp":
-        raise NotImplementedError(
-            f"triangle_backend={cfg.triangle_backend!r}: that Pallas kernel is not ported yet")
 
 
 def _triangles_closest(scene, o, d, t_max, cfg) -> FamilyHit:
@@ -42,6 +39,24 @@ def _triangles_closest(scene, o, d, t_max, cfg) -> FamilyHit:
         from .ops.traverse import kd_closest
 
         _, idx, hit = kd_closest(scene.kd, scene.triangles, o, d, t_max, cfg)
+        return tri_ops.triangle_hit_attrs(scene.triangles, o, d, idx, hit, scene.mesh_colors)
+    # the brute-force branch, the only one that reads triangle_backend
+    # (the JAX package's intersect.py:54-70); names other than these two
+    # take the torch brute force there too
+    backend = getattr(cfg, "triangle_backend", "jnp")
+    if backend in ("pallas", "plucker"):
+        with torch.no_grad():
+            verts = scene.triangles.verts.detach()
+            o_s, d_s = o.detach().contiguous(), d.detach().contiguous()
+            if backend == "plucker":
+                from .ops.plucker import plucker_closest, plucker_pack
+
+                t_best, idx = plucker_closest(plucker_pack(verts), o_s, d_s)
+            else:
+                from .ops.mt import mt_closest, swizzle_tris
+
+                t_best, idx = mt_closest(swizzle_tris(verts), o_s, d_s)
+        hit = t_best < t_max
         return tri_ops.triangle_hit_attrs(scene.triangles, o, d, idx, hit, scene.mesh_colors)
     return tri_ops.intersect_triangles_brute(scene.triangles, scene.mesh_colors, o, d, t_max)
 
@@ -54,6 +69,8 @@ def _triangles_occluded(scene, o, d, t_max, cfg) -> torch.Tensor:
         from .ops.traverse import kd_any
 
         return kd_any(scene.kd, scene.triangles, o, d, t_max, cfg)
+    # any-hit never reads triangle_backend: the JAX package has no any-hit
+    # brute-force kernel
     return tri_ops.occluded_triangles_brute(scene.triangles.verts.detach(), o, d, t_max)
 
 

@@ -108,6 +108,36 @@ def check(name, t, dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
+def check_blocks(kd, tables, device) -> None:
+    """The kd leaf tables a kernel reads, for CUDA tensors: each of
+    ``tables`` present, and block_g, block_tris, block_orig of matching
+    shapes on ``device``."""
+    missing = [k for k in tables if getattr(kd, k) is None]
+    if missing:
+        raise ValueError(f"kd tables {missing} are missing: build them with accel.kdtree")
+    B, S = kd.block_orig.shape
+    spad = kd.block_g.shape[2] // 5
+    check("block_g", kd.block_g, torch.float32, (B, 16, 5 * spad), device)
+    check("block_tris", kd.block_tris, torch.float32, (B, S, 9), device)
+    check("block_orig", kd.block_orig, torch.int32, (B, S), device)
+
+
+def check_count(n: int) -> None:
+    if n >= 2**31:
+        raise ValueError(f"{n} rays: the kernels index rays with int32")
+
+
+def check_marks(kd, stats, touched, n: int, words: int, device) -> None:
+    """The optional measurement outputs: ``stats`` (n, words) and
+    ``touched`` (B, 2 + S), which needs ``stats``."""
+    if stats is not None:
+        check("stats", stats, torch.int32, (n, words), device)
+    if touched is not None:
+        if stats is None:
+            raise ValueError("touched is written only by the stats build: pass stats too")
+        check("touched", touched, torch.int32, (kd.block_orig.shape[0], 2 + kd.block_orig.shape[1]), device)
+
+
 def check_rays(kd, o, d, t_max, stack_depth: int, stats, touched, tables) -> None:
     """Checks shared by the traversal wrappers, for CUDA tensors: the rays,
     the stack depth, the kd leaf tables and the optional measurement
@@ -116,28 +146,15 @@ def check_rays(kd, o, d, t_max, stack_depth: int, stats, touched, tables) -> Non
     if not 1 <= stack_depth <= 64:
         raise ValueError(f"stack_depth {stack_depth} outside [1, 64]")
     n = o.shape[0]
-    if n >= 2**31:
-        raise ValueError(f"{n} rays: the kernels index rays with int32")
-    missing = [k for k in tables if getattr(kd, k) is None]
-    if missing:
-        raise ValueError(f"kd tables {missing} are missing: build them with accel.kdtree")
+    check_count(n)
     dev = o.device
-    B, S = kd.block_orig.shape
-    spad = kd.block_g.shape[2] // 5
+    check_blocks(kd, tables, dev)
     check("o", o, torch.float32, (n, 3), dev)
     check("d", d, torch.float32, (n, 3), dev)
     check("t_max", t_max, torch.float32, (n,), dev)
     check("bounds_min", kd.bounds_min, torch.float32, (3,), dev)
     check("bounds_max", kd.bounds_max, torch.float32, (3,), dev)
-    check("block_g", kd.block_g, torch.float32, (B, 16, 5 * spad), dev)
-    check("block_tris", kd.block_tris, torch.float32, (B, S, 9), dev)
-    check("block_orig", kd.block_orig, torch.int32, (B, S), dev)
-    if stats is not None:
-        check("stats", stats, torch.int32, (n, 4), dev)
-    if touched is not None:
-        if stats is None:
-            raise ValueError("touched is written only by the stats build: pass stats too")
-        check("touched", touched, torch.int32, (B, 2 + S), dev)
+    check_marks(kd, stats, touched, n, 4, dev)
 
 
 def outputs(n: int, device):

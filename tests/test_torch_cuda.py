@@ -1,5 +1,6 @@
-"""The CUDA kd-traversal kernels (packet, mega, forest) vs their plain
-walks, on a CUDA device.
+"""The CUDA kernels (the packet, mega and forest walks, the binned walk's
+block-loop leaf stage, the Möller–Trumbore and Plücker brute force) vs
+their plain versions, on a CUDA device.
 
 The kernels have no CPU mode, so every test here skips without a card.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -20,8 +21,9 @@ import torch
 
 import dod_raytracer_tpu_torch as T
 from dod_raytracer_tpu_torch.mesh import load_mesh_asset
-from dod_raytracer_tpu_torch.ops import forest, mega, packet
+from dod_raytracer_tpu_torch.ops import binned, forest, mega, mt, packet, plucker
 from dod_raytracer_tpu_torch.ops import traverse as ttrav
+from dod_raytracer_tpu_torch.ops.triangle import brute_force_closest
 
 N = 4096
 
@@ -186,6 +188,21 @@ def test_walk_kernels_match_plain_walks(teapot_kd, forest_kd, case, any_hit):
             assert torch.equal(tk, tq) and torch.equal(pk, pq), name
 
 
+def test_dispatch_raises_on_missing_tables(teapot_kd):
+    """A CUDA tree without block_g (or block_aabb, for the packet kernel)
+    reaches its kernel's wrapper through the dispatch, and that raises: no
+    backend gives way to a torch walk on the card."""
+    _, kd, _ = teapot_kd
+    o, d, t_max = make_rays("unclipped", seed=6)
+    before = [dict(m.launches) for m in (packet, mega, binned)]
+    for name in ("auto", "packet", "mega", "forest", "binned"):
+        cfg = T.Config(MaxPrims=96, leaf_chunk_lanes=48, traversal_backend=name)
+        for table in ("block_g",) + (("block_aabb",) if name in ("auto", "packet") else ()):
+            with pytest.raises(ValueError, match=table):
+                ttrav.kd_closest(dataclasses.replace(kd, **{table: None}), None, o, d, t_max, cfg)
+    assert [dict(m.launches) for m in (packet, mega, binned)] == before
+
+
 def test_walk_wrappers_reject_missing_tables(teapot_kd, forest_kd):
     o, d, t_max = make_rays("unclipped", seed=6)
     before = dict(mega.launches), dict(forest.launches)
@@ -227,3 +244,154 @@ def test_kernels_match_plain_walks_on_the_cpu(teapot_kd, forest_kd, any_hit):
         if not any_hit:
             for a, b in zip(got[:2], ref[:2]):
                 assert torch.equal(a.cpu(), b), name
+
+
+def _cpu_kd(kd):
+    return dataclasses.replace(kd, **{f.name: getattr(kd, f.name).cpu() for f in dataclasses.fields(kd)
+                                      if isinstance(getattr(kd, f.name), torch.Tensor)})
+
+
+def _keys(tv, kd, o, d, seed):
+    """A block key per ray: a block that holds the triangle the ray meets
+    first, or a random block for a ray that misses and for a quarter of
+    the rays, and a key >= B for an eighth."""
+    rng = np.random.default_rng(seed)
+    orig = kd.block_orig.cpu().numpy()
+    B = orig.shape[0]
+    block_of = np.zeros(tv.shape[0], np.int64)
+    blk, slot = np.nonzero(orig >= 0)
+    block_of[orig[blk, slot]] = blk
+    t, idx = (x.cpu().numpy() for x in brute_force_closest(torch.from_numpy(tv).cuda(), o, d))
+    keys = np.where(np.isfinite(t), block_of[idx], rng.integers(0, B, N))
+    keys[N // 8:N // 4] = rng.integers(0, B, N // 8)
+    keys[:N // 8] = B + rng.integers(0, 3, N // 8)
+    return torch.from_numpy(keys.astype(np.int32)).cuda()
+
+
+def test_block_loop_matches_its_plain_version_on_the_cpu(teapot_kd):
+    tv, kd, _ = teapot_kd
+    o, d, _ = make_rays("unclipped", seed=11)
+    keys = _keys(tv, kd, o, d, 11)
+    before = binned.launches["any_hit"]
+    t, p = binned.block_loop_intersect(kd, o, d, keys, "any_hit")
+    assert binned.launches["any_hit"] == before + 1
+    t_ref, p_ref = ttrav.leaf_plain(_cpu_kd(kd), o.cpu(), d.cpu(), keys.cpu())
+    assert int(torch.isfinite(t_ref).sum()) > N // 8
+    assert torch.equal(t.cpu(), t_ref) and torch.equal(p.cpu(), p_ref)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_binned_walk_matches_plain_walks(teapot_kd, any_hit):
+    """The binned walk on the card against the plain walk on the card and
+    on the CPU, bit for bit in every output and both modes, and against
+    the packet kernel.  An any-hit ray's t and prim are compared with the
+    plain walks only: the binned walk and the plain walks take the closest
+    hit of the block where a ray first hits, the per-ray kernels
+    (kd_leaf.cuh test_block<kAnyHit>) stop at that block's first hit slot."""
+    _, kd, depth = teapot_kd
+    o, d, t_max = make_rays("clipped", seed=12)
+    mode = "any_hit" if any_hit else "closest"
+    before = binned.launches[mode]
+    got = binned.binned_traverse(kd, o, d, t_max, depth, any_hit)
+    assert binned.launches[mode] > before
+    plains = [ttrav.traverse_plain(kd, o, d, t_max, depth, any_hit),
+              ttrav.traverse_plain(_cpu_kd(kd), o.cpu(), d.cpu(), t_max.cpu(), depth, any_hit)]
+    assert bool(plains[0][2].any())
+    for ref in plains:
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu(), b.cpu())
+    pk = packet.packet_traverse(kd, o, d, t_max, depth, any_hit)
+    assert torch.equal(got[2], pk[2])
+    if not any_hit:
+        assert torch.equal(got[0], pk[0]) and torch.equal(got[1], pk[1])
+
+
+def test_block_loop_stats_build_gives_the_same_result(teapot_kd):
+    tv, kd, _ = teapot_kd
+    o, d, _ = make_rays("unclipped", seed=13)
+    keys = _keys(tv, kd, o, d, 13)
+    ref = binned.block_loop_intersect(kd, o, d, keys)
+    B, S = kd.block_orig.shape
+    stats = torch.zeros((N, 2), dtype=torch.int32, device="cuda")
+    touched = torch.zeros((B, 2 + S), dtype=torch.int32, device="cuda")
+    got = binned.block_loop_intersect(kd, o, d, keys, stats=stats, touched=touched)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    valid = keys < B
+    slots, distances = stats.long().sum(0).tolist()
+    per_block = (kd.block_orig >= 0).sum(1)
+    assert slots == int(per_block[keys[valid].long()].sum())  # every non-empty slot of the keyed block
+    assert 0 < distances <= slots
+    assert not stats[~valid].any()
+    marks = touched.bool()
+    assert torch.equal(marks[:, 1], torch.isin(torch.arange(B, device="cuda"), keys[valid]))
+    assert not (marks[:, 2:] & (kd.block_orig < 0)).any()
+    with pytest.raises(ValueError, match="stats"):
+        binned.block_loop_intersect(kd, o, d, keys, touched=touched)
+
+
+def test_block_loop_wrappers_reject_bad_inputs(teapot_kd):
+    tv, kd, depth = teapot_kd
+    o, d, t_max = make_rays("unclipped", seed=6)
+    keys = _keys(tv, kd, o, d, 6)
+    before = dict(binned.launches)
+    with pytest.raises(TypeError):
+        binned.block_loop_intersect(kd, o, d, keys.long())
+    with pytest.raises(ValueError):
+        binned.block_loop_intersect(kd, o, d, keys[:-1].contiguous())
+    with pytest.raises(ValueError):
+        binned.block_loop_intersect(kd, o, d, keys, "shadow")
+    for table in ("block_g", "block_tris", "block_orig"):
+        with pytest.raises(ValueError, match=table):
+            binned.binned_traverse(dataclasses.replace(kd, **{table: None}), o, d, t_max, depth, False)
+    assert binned.launches == before
+
+
+@pytest.fixture(scope="module")
+def brute_inputs():
+    """The teapot's triangles and rays, half of them aimed at a triangle,
+    on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    tv, _ = load_mesh_asset("teapot")
+    o, d, _ = make_rays("unclipped", seed=14)
+    return torch.from_numpy(tv).cuda(), o, d
+
+
+@pytest.mark.parametrize("kernel", ["mt", "plucker"])
+def test_brute_kernels_match_their_plain_versions(brute_inputs, kernel):
+    """Each brute-force kernel on the card against its plain version on
+    the card and on the CPU, bit for bit; Möller–Trumbore also against the
+    torch brute force."""
+    verts, o, d = brute_inputs
+    module, pack, plain = {"mt": (mt, mt.swizzle_tris, mt.mt_closest_plain),
+                           "plucker": (plucker, plucker.plucker_pack, plucker.plucker_closest_plain)}[kernel]
+    wrapper = mt.mt_closest if kernel == "mt" else plucker.plucker_closest
+    g = pack(verts)
+    assert torch.equal(g.cpu(), pack(verts.cpu()))  # the packing is the same bits on both devices
+    before = module.launches["closest"]
+    got = wrapper(g, o, d)
+    assert module.launches["closest"] == before + 1
+    refs = [plain(g, o, d), plain(g.cpu(), o.cpu(), d.cpu())]
+    if kernel == "mt":
+        refs.append(brute_force_closest(verts, o, d))
+    assert int(torch.isfinite(refs[0][0]).sum()) > N // 4
+    for ref in refs:
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+def test_brute_wrappers_reject_bad_inputs(brute_inputs):
+    verts, o, d = brute_inputs
+    before = dict(mt.launches), dict(plucker.launches)
+    soa, g = mt.swizzle_tris(verts), plucker.plucker_pack(verts)
+    for wrapper, packed, cut in ((mt.mt_closest, soa, soa[:, :100]), (plucker.plucker_closest, g, g[..., :100])):
+        with pytest.raises(ValueError):
+            wrapper(cut.contiguous(), o, d)  # not a multiple of the triangle tile
+        with pytest.raises(ValueError):
+            wrapper(packed.cpu(), o, d)
+        with pytest.raises(TypeError):
+            wrapper(packed, o.double(), d)
+        with pytest.raises(ValueError):
+            wrapper(packed, o[:, :2].contiguous(), d)
+    assert (dict(mt.launches), dict(plucker.launches)) == before

@@ -162,7 +162,19 @@ def test_unported_options_raise(default_pair):
     for knob in ("sort_bounces", "remat_bounces", "bounce_skip", "shadow_reverse", "sort_shadow"):
         with pytest.raises(NotImplementedError):
             T.render_rays(tscene, o, d, raw, T.Config(**FRAME, **{knob: True}))
-    with pytest.raises(NotImplementedError):
-        T.render_rays(tscene, o, d, raw, T.Config(**FRAME, triangle_backend="pallas"))
     with pytest.raises(ValueError):
         T.render_image(tscene, T.Config(**FRAME), device="cuda")  # the scene is on the CPU
+
+
+def test_triangle_backend_does_not_change_a_kd_frame(default_pair):
+    """triangle_backend is read only on the brute-force branch (the JAX
+    package's intersect.py:54-70): with the kd tree, "pallas" and
+    "plucker" render exactly the "jnp" frame (at 32x16 and 3 bounces, to
+    keep the plain walks' many small ops few)."""
+    _, _, tscene, _ = default_pair
+    small = dict(FRAME, Width=32, Height=16, recursion_depth=3)
+    ref = T.render_image(tscene, T.Config(**small), device="cpu")
+    assert float(ref.mean()) > 0.01
+    for backend in ("pallas", "plucker"):
+        img = T.render_image(tscene, T.Config(**small, triangle_backend=backend), device="cpu")
+        assert torch.equal(img, ref), backend

@@ -7,6 +7,8 @@ agree, t agrees to rtol 1e-3 where both hit, and a prim may differ only
 where both candidates' Möller–Trumbore t agree to rtol 1e-5.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -108,6 +110,27 @@ def test_plain_walk_matches_jax_any_hit(teapot_pair, case):
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("case", ["unclipped", "clipped", "inside"])
+def test_xla_walk_matches_jax(teapot_pair, case):
+    """traversal_backend="xla" on both packages: the gather walk with the
+    barycentric Möller–Trumbore leaf test."""
+    jscene, jcfg, tscene, tcfg = teapot_pair
+    o, d, t_max = make_rays(case, seed=3)
+    args = (jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max))
+    ref = [np.asarray(x) for x in jax.jit(jtrav.kd_closest, static_argnums=5)(
+        jscene.kd, jscene.triangles, *args, jcfg)]
+    assert ref[2].sum() > N // 8
+    xcfg = dataclasses.replace(tcfg, traversal_backend="xla")
+    targs = (tscene.kd, tscene.triangles, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(t_max), xcfg)
+    got = [x.numpy() for x in ttrav.kd_closest(*targs)]
+    assert_parity(np.asarray(tscene.triangles.verts), ref, got, o, d)
+    t_any = np.minimum(t_max, 5.0).astype(np.float32)
+    ref_any = np.asarray(jax.jit(jtrav.kd_any, static_argnums=5)(
+        jscene.kd, jscene.triangles, *args[:2], jnp.asarray(t_any), jcfg))
+    got_any = ttrav.kd_any(*targs[:4], torch.from_numpy(t_any), xcfg).numpy()
+    np.testing.assert_array_equal(got_any, ref_any)
+
+
 def test_plain_walk_chunking_is_invisible(teapot_pair, monkeypatch):
     _, _, tscene, tcfg = teapot_pair
     o, d, t_max = (torch.from_numpy(x) for x in make_rays("clipped", seed=2))
@@ -142,8 +165,7 @@ def test_backend_and_node_table(teapot_pair):
     for name in ("mega", "forest"):
         assert ttrav._backend(kd, T.Config(traversal_backend=name)) == "mega"
     for name in ("xla", "binned"):
-        with pytest.raises(NotImplementedError):
-            ttrav._backend(kd, T.Config(traversal_backend=name))
+        assert ttrav._backend(kd, T.Config(traversal_backend=name)) == name
     assert ttrav._stack_depth(kd, tcfg) == min(64, kd.max_depth + 1)
     tbl = ttrav._pack_nodes(kd)
     assert tbl.shape == (kd.node_flag.shape[0], 5) and tbl.is_contiguous()

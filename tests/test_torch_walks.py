@@ -152,7 +152,10 @@ def test_wrappers_on_cpu_count_no_launch(pair):
 
 def test_backend_resolves_as_jax(pair, monkeypatch):
     """Every name resolves as the JAX package resolves it on its
-    accelerator; names that JAX sends to its binned or XLA walks raise."""
+    accelerator, with and without the treelet tables; a name JAX does not
+    know raises.  Without block_g or block_aabb the JAX package gives way
+    to a slower walk; the port keeps the backend of the full tree, whose
+    wrapper raises for CUDA tensors (tests/test_torch_cuda.py)."""
     _, _, jscene, tkd, _ = pair
     jkd = jscene.kd
     monkeypatch.setattr(mt_kernel, "on_tpu", lambda: True)
@@ -163,8 +166,9 @@ def test_backend_resolves_as_jax(pair, monkeypatch):
     for jk, tk in kds:
         for name in ("auto", "packet", "mega", "forest", "binned", "xla"):
             ref = jtrav._backend(jk, J.Config(traversal_backend=name))
-            if ref in ("binned", "xla"):
-                with pytest.raises(NotImplementedError):
-                    ttrav._backend(tk, T.Config(traversal_backend=name))
-            else:
-                assert ttrav._backend(tk, T.Config(traversal_backend=name)) == ref, name
+            assert ttrav._backend(tk, T.Config(traversal_backend=name)) == ref, name
+            for table in ("block_g", "block_aabb"):
+                bare = dataclasses.replace(tk, **{table: None})
+                assert ttrav._backend(bare, T.Config(traversal_backend=name)) == ref, (name, table)
+    with pytest.raises(ValueError):
+        ttrav._backend(tkd, T.Config(traversal_backend="gather"))
