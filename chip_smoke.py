@@ -6,32 +6,39 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printed with its elapsed seconds as it ends:
   1. the card (nvidia-smi name and power limit) and the torch version;
   2. build of the CUDA kernels from csrc/ with plain nvcc, one process per
-     source, all at once: packet_traverse.cu (packet kernel), kd_walk.cu
+     source, all at once: packet_traverse.cu (the packet walk and the
+     per-ray walk it replaced; its whole -Xptxas -v is printed), kd_walk.cu
      (mega and forest walks), block_loop.cu (the binned walk's leaf stage),
      mt_closest.cu and plucker_closest.cu (brute force);
   3. the reference scene from config.ini (1920x1080): 16 spheres, 6 walls,
      the cylinder, the teapot (6,320 triangles), 9 lights, 10 bounces, with
      the kd-tree shape MaxPrims=96, leaf_chunk_lanes=48;
   4. one warm and one timed 1920x1080 frame through ``render_image``
-     (backend 'auto': the packet kernel); every launch count is set to 0
-     just before the timed frame and read just after; the image must be
-     finite, of the right shape and not black; a 64x32 frame on the card
-     must match the CPU path;
-  5. parity of the packet and mega kernels and of the binned walk against
-     the plain walk and brute force, on the triangle queries at bounce 0
-     and a later bounce of the ray tile whose primary rays hit the teapot
-     most, and on the shadow rays of those bounces; the mega kernel and the
-     binned walk also against the packet kernel;
-  6. the packet and mega kernels' time per launch at the main path's
-     shapes, the plain walk's time on the same inputs, and the least time
-     the card could take (see ``kernel_entry``: the bytes these inputs make
-     the kernel read over 3.35 TB/s, or the fp32 operations of its leaf
-     tests over 67 TFLOP/s, whichever is larger);
+     (backend 'auto': the packet walk, with the default sorts); every
+     launch count is set to 0 just before the timed frame and read just
+     after; the image must be finite, of the right shape and not black;
+     then the same frame through the per-ray walk (the same sorts) and
+     with sort_bounces flipped, each timed once and held to the first
+     (u8 channels off by > 1), and 3 frames each with sort_bounces on and
+     off, in turns; a 64x32 frame on the card must match the CPU path;
+  5. parity of the packet walk, the per-ray walk, the mega kernel and the
+     binned walk against the plain walk and brute force, on the triangle
+     queries at bounce 0 and a later bounce of the ray tile whose primary
+     rays hit the teapot most, and on the shadow rays of those bounces;
+     the mega kernel and the binned walk also against the per-ray walk;
+  6. the packet walk's and mega kernel's time per launch at the main
+     path's shapes, the per-ray walk's beside the packet walk's in turns, the plain walk's time on the same inputs, and the least
+     time the card could take (see ``kernel_entry``: the bytes these
+     inputs make the kernel read over 3.35 TB/s, or the fp32 operations of
+     its leaf tests over 67 TFLOP/s, whichever is larger); then both walks
+     per bounce over every traversal launch of one tile's render, with the
+     bounce sort on and off (``per_bounce``);
   7. the teapot frame with traversal_backend='mega' (the mega kernel),
-     timed once, against the frame of phase 4: u8 channels off by > 1;
+     timed once, against the per-ray frame of phase 4: u8 channels off by
+     > 1;
   8. the teapot frame with traversal_backend='binned' (the block-loop
-     kernel), not cut, timed once, against the frame of phase 4: no u8
-     channel may be off by > 1; then the block-loop kernel's time per
+     kernel), not cut, timed once, against the per-ray frame of phase 4:
+     no u8 channel may be off by > 1; then the block-loop kernel's time per
      launch, its plain version's and its bound over the launches of the
      binned walks of phase 5's bounce-0 queries (``block_loop_entry``);
   9. brute force: the Möller–Trumbore and Plücker kernels once each on the
@@ -41,39 +48,54 @@ Phases, each printed with its elapsed seconds as it ends:
      and an fp32 torch.matmul of the Plücker product beside them; then the
      teapot frame at 480x270 with brute_threshold=6320 through
      triangle_backend 'jnp', 'pallas' (the Möller–Trumbore kernel) and
-     'plucker' (the Plücker kernel), and through the packet kernel;
+     'plucker' (the Plücker kernel), and through the packet walk and the
+     per-ray walk, in turns (packet, per-ray, per-ray, packet);
  10. the flagship scene of bench.py: the procedural dragon (869,952
      triangles) at 1920x1080, MaxPrims=192, leaf_chunk_lanes=48, seed 0,
      built on the card; its load and build times and tree shape;
- 11. the flagship frame (backend 'auto': the packet kernel), one warm and
-     one timed frame, with the counts set to 0 around the timed one;
+ 11. the flagship frame (backend 'auto': the packet walk; sort_shadow on
+     by the automatic rule), one warm and one timed frame, with the counts
+     set to 0 around the timed one; then, each timed once and held to it,
+     the same frame through the per-ray walk, with sort_shadow off, and
+     with sort_bounces flipped, and 3 frames each with sort_bounces on and
+     off, in turns;
  12. the same frame with traversal_backend='forest' (the forest kernel),
-     timed once, against the frame of phase 11;
+     timed once, against the per-ray frame of phase 11;
  13. the same frame with traversal_backend='mega', which resolves to the
      binned walk on this tree of 2,645 nodes (the resolution is printed),
-     the full frame, timed once, against the frame of phase 11;
- 14. parity of the packet and forest kernels and of the binned walk
-     against the plain forest walk, the plain walk and brute force on
-     65,536 rays of the dragon tile with the most bounce-0 dragon hits, at
-     bounce 0 and bounce 3 and on their shadow rays, and of the forest
-     kernel and the binned walk against the packet kernel.  Closest-hit
+     the full frame, timed once, against the per-ray frame of phase 11;
+ 14. parity of the packet walk, the per-ray walk, the forest kernel and
+     the binned walk against the plain forest walk, the plain walk and
+     brute force on 65,536 rays of the dragon tile with the most bounce-0
+     dragon hits, at bounce 0 and bounce 3 and on their shadow rays, and
+     of the forest kernel and the binned walk against the per-ray walk.
+     Closest-hit
      brute force is the Möller–Trumbore kernel, held first to the torch
      brute force on 4,096 of the rays; any-hit brute force is torch on the
      shadow rays of 4,096 points;
- 15. the packet and forest kernels' times, plain times and bounds at the
-     flagship's shapes (262,144 closest-hit and 2,359,296 any-hit rays of
-     one tile), the whole binned walk of that tile and the block-loop
-     kernel's entries over its launches; then the ``kernels`` JSON line;
+ 15. the packet walk's and forest kernel's times, plain times and bounds
+     at the flagship's shapes (262,144 closest-hit and 2,359,296 any-hit
+     rays of one tile), with the per-ray walk in turns beside the packet
+     walk, and both walks per bounce with the bounce
+     sort on and off (as phase 6); the whole binned walk of that tile and
+     the block-loop kernel's entries over its launches; then the
+     ``kernels`` JSON line;
  16. one profiled flagship frame: device time by kernel, the traversal
      kernels' share of it, and the device's idle share, as one ``profile``
      line;
  17. the result line ``{"ok": true, "device": {...}}``.
 
-Parity rules.  Against the plain walks, and between kernels, the outputs
-must be equal bit for bit: the plain walks compute the kernels' leaf test
+Parity rules.  Against the plain walks, and between the per-ray kernels
+(the per-ray packet walk, mega, forest, the binned walk), the outputs must
+be equal bit for bit: the plain walks compute the kernels' leaf test
 (Plücker edge signs on block_g, then the Möller–Trumbore t on block_tris,
 every operation in the kernels' order) and their visit order, so hit masks
-are equal, and t and prims are equal wherever both hit.  The binned walk's
+are equal, and t and prims are equal wherever both hit.  The packet walk
+visits the union of its warp's leaves in its own order, so it is held to
+the JAX package's rule for its packet kernel (tests/test_packet.py),
+tightened (``ops.packet.parity``): hit masks and any-hit bits equal,
+closest-hit t bit-equal, and a prim may differ only where both
+triangles' Möller–Trumbore t are bit-equal; such ties are counted.  The binned walk's
 any-hit t and prims must equal the plain walks' too (the same block-closest
 leaf stage; the per-ray kernels stop at a block's first hit slot, so only
 their any-hit bits are compared).  Brute force is a
@@ -95,12 +117,15 @@ line; so does a run without a CUDA device or without the package beside it.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNELS = {  # kernel -> (source in the repo, the TPU kernel it replaces)
@@ -137,6 +162,8 @@ BRUTE_FRAME = dict(Width=480, Height=270, ray_tile=16384, brute_threshold=6320) 
 MT_OPS = 46  # fp32 operations per ray-triangle pair, mt_closest.cu (27 mul, 18 add, 1 rcp)
 PLUCKER_OPS = 46  # plucker_closest.cu (25 mul, 20 add, 1 div)
 U8_TOLERANCE = 0.01  # golden tolerance: fraction of u8 channels off by > 1
+TIMING_REPS = 20  # CUDA-event launches per timing, after 2 warm
+BOUNCE_REPS = 5  # the same, per bounce of a tile's render
 
 _T0 = time.perf_counter()
 
@@ -181,6 +208,16 @@ def wall_s(torch, fn):
     return time.perf_counter() - t, out
 
 
+def time_turns(torch, fns: dict, reps: int) -> dict:
+    """Mean ms per call of each of ``fns``, timed in turns there and back
+    (a, b, ..., b, a) on the same card, each turn ``time_ms``."""
+    names = list(fns)
+    ms = {k: 0.0 for k in names}
+    for k in names + names[::-1]:
+        ms[k] += time_ms(torch, fns[k], reps) / 2
+    return ms
+
+
 def u8_off(quantize_u8, a, b) -> float:
     """Fraction of u8 channels of two frames that differ by more than 1."""
     diff = quantize_u8(a).astype(int) - quantize_u8(b).astype(int)
@@ -201,8 +238,8 @@ def main(device: str = "cuda") -> int:
                                                       traverse_forest_plain, traverse_plain)
     from dod_raytracer_tpu_torch.ops.triangle import (brute_force_closest, mt_single,
                                                       occluded_triangles_brute)
-    from dod_raytracer_tpu_torch.render import frame_rays
-    from dod_raytracer_tpu_torch.shading import light_terms, shadow_rays
+    from dod_raytracer_tpu_torch.render import _sort_bounces, frame_rays, render_rays
+    from dod_raytracer_tpu_torch.shading import _sort_shadow, light_terms, shadow_rays
     from dod_raytracer_tpu_torch.utils.math import reflect
 
     dev = torch.device(device)
@@ -211,8 +248,12 @@ def main(device: str = "cuda") -> int:
         "mega_walk": (mega, mega.mega_traverse, traverse_plain),
         "forest_walk": (forest, forest.forest_traverse, traverse_forest_plain),
     }
+    per_ray = packet.packet_traverse_per_ray
+    packet_walk = packet.packet_traverse  # the frame's kernel
     counters = {"packet_traverse": packet, "mega_walk": mega, "forest_walk": forest, "block_loop": binned,
-                "mt_closest": mt, "plucker_closest": plucker}  # kernel -> the module that counts it
+                "mt_closest": mt, "plucker_closest": plucker,  # kernel -> the module that counts it
+                "packet_traverse_per_ray": SimpleNamespace(launches=packet.per_ray_launches,
+                                                           reset_launches=packet.reset_launches)}
 
     def reset_counts():
         for module in counters.values():
@@ -237,6 +278,47 @@ def main(device: str = "cuda") -> int:
         check(float(img.mean()) > 0.01, f"{path}: frame is black (mean {float(img.mean())})")
         return seconds, img, counts[only] if only else {}
 
+    @contextlib.contextmanager
+    def frame_walk(walk):
+        """Frames inside take ``walk`` where the dispatch takes the packet
+        walk (ops/traverse.py reads ``packet.packet_traverse`` at each call)."""
+        packet.packet_traverse = walk
+        try:
+            yield
+        finally:
+            packet.packet_traverse = packet_walk
+
+    def sort_samples(scene, base, reps=3):
+        """Frame seconds with sort_bounces on and off, ``reps`` each, timed
+        in turns (on, off, off, on, on, off, ...) -> {on: [...], off: [...]}."""
+        order = [True, False, False, True] * reps
+        out = {True: [], False: []}
+        for sort in order[:2 * reps]:
+            out[sort].append(wall_s(torch, lambda: render_image(
+                scene, dataclasses.replace(base, sort_bounces=sort), device=dev))[0])
+        return {"on": out[True], "off": out[False]}
+
+    def frame_set(scene, base, label, variants):
+        """The default frame of ``base`` (one warm, one timed), then each
+        of ``variants`` (name -> (config overrides, walk)), timed once and
+        held to the default frame: u8 channels off by > 1 under the golden
+        1%.  -> ({name: seconds}, {name: u8 share off}, {name: launches},
+        the default frame, the per-ray frame)."""
+        wall_s(torch, lambda: render_image(scene, base, device=dev))
+        secs, offs, counts, imgs = {}, {}, {}, {}
+        secs["default"], imgs["default"], counts["default"] = frame(scene, base, label, "packet_traverse")
+        for name, (over, walk) in variants.items():
+            only = "packet_traverse_per_ray" if walk is per_ray else "packet_traverse"
+            with frame_walk(walk):
+                secs[name], img_v, counts[name] = frame(scene, dataclasses.replace(base, **over),
+                                                        f"{label} ({name})", only)
+            offs[name] = u8_off(quantize_u8, img_v, imgs["default"])
+            check(offs[name] < U8_TOLERANCE, f"{label} ({name}): {offs[name]:.4%} of u8 channels off by > 1")
+            if walk is per_ray:
+                imgs["per_ray"] = img_v
+            del img_v
+        return secs, offs, counts, imgs["default"], imgs["per_ray"]
+
     # ---- 1. the card ----
     card = card_line()
     print(card, flush=True)
@@ -248,10 +330,11 @@ def main(device: str = "cuda") -> int:
     builds = _cuda.build_all(SOURCES, force=True)
     for b in builds:
         for line in b["log"].splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
+            if b["name"] == "packet_traverse" or "registers" in line or "spill" in line or "stack frame" in line:
                 print(f"  ptxas {b['name']}:", line.strip(), flush=True)
     for module in (packet, mega, binned, mt, plucker):
         module._fn()
+    packet._fn_per_ray()
     log("phase 2 build: " + ", ".join(f"{b['name']}.cu nvcc {b['seconds']:.2f} s -> "
                                       f"{os.path.relpath(b['path'], ROOT)}" for b in builds)
         + f"; {time.perf_counter() - t:.2f} s wall")
@@ -268,12 +351,20 @@ def main(device: str = "cuda") -> int:
         f"{scene.n_lights} lights, depth {cfg.recursion_depth}, built in {time.perf_counter() - t:.2f} s")
 
     # ---- 4. teapot frames ----
-    warm_s, _ = wall_s(torch, lambda: render_image(scene, cfg, device=dev))
-    frame_s, img, counts = frame(scene, cfg, "teapot frame", "packet_traverse")
+    sort_default = _sort_bounces(scene, cfg, dev)
+    teapot_frames = frame_set(scene, cfg, "teapot frame", {
+        "per_ray": ({}, per_ray),
+        f"sort_bounces={not sort_default}": ({"sort_bounces": not sort_default}, packet_walk)})
+    teapot_sorts = sort_samples(scene, cfg)
+    log(f"phase 4 teapot frame seconds with sort_bounces on and off, in turns: {json.dumps(teapot_sorts)}")
+    frame_s, counts = teapot_frames[0]["default"], teapot_frames[2]["default"]
+    img, img_pr = teapot_frames[3], teapot_frames[4]
     mean = float(img.mean())
     pixels = cfg.Width * cfg.Height
-    log(f"phase 4 frame: warm {warm_s:.3f} s, timed {frame_s:.3f} s, {pixels / frame_s:.0f} primary rays/s, "
-        f"mean {mean:.4f}, launches {counts}")
+    log(f"phase 4 frames (sort_bounces={sort_default} by default, sort_shadow={_sort_shadow(scene, cfg)}): "
+        f"seconds {json.dumps(teapot_frames[0])}, u8 channels off by > 1 from the default frame "
+        f"{json.dumps(teapot_frames[1])}, launches {json.dumps(teapot_frames[2])}; "
+        f"{pixels / frame_s:.0f} primary rays/s, mean {mean:.4f}")
 
     # a small frame on the card (kernel) against the CPU path (plain walk)
     small = Config.load(os.path.join(ROOT, "config.ini"), Width=64, Height=32,
@@ -312,14 +403,85 @@ def main(device: str = "cuda") -> int:
 
     def closest_refs(kd, verts, depth, o, d, tt, plains, n_brute, brute=brute_closest):
         """Reference (t, prim, hit) of a closest-hit query: each plain walk
-        on all rays, brute force (``brute``) on the first n_brute."""
-        refs = {}
+        on all rays, brute force (``brute``) on the first n_brute; and each
+        plain walk's outputs (t, prim, found)."""
+        refs, raws = {}, {}
         for name, walk in plains.items():
-            tp, pp, fp = walk(kd, o, d, tt, depth, False)
+            raws[name] = tp, pp, fp = walk(kd, o, d, tt, depth, False)
             refs[name] = (tp, pp, fp & (tp < tt), o.shape[0])
         tb, pb = brute(verts, o[:n_brute], d[:n_brute])
         refs["brute"] = (tb, pb, tb < tt[:n_brute], n_brute)
-        return refs
+        return refs, raws
+
+    def check_packet(label, kd, out, raws, o, d):
+        """The packet walk's closest hits against each per-ray walk's
+        outputs ``raws`` (name -> (t, prim, found)) under its parity rule
+        (module docstring)."""
+        res = {}
+        for name, ref in raws.items():
+            r = packet.parity(kd, out, ref, o, d, False)
+            both = out[2] & ref[2]
+            r["max_abs_t_err"] = float((out[0] - ref[0])[both].abs().max()) if bool(both.any()) else 0.0
+            res[name] = r
+            check(packet.parity_holds(r), f"packet_traverse closest parity {label} vs {name}: {r}")
+        log(f"phase parity packet_traverse closest {label}: {json.dumps(res)}")
+        return res
+
+    def packet_stats(kd, inputs, depth, any_hit):
+        """The packet walk's measurement build on ``inputs`` -> its counts
+        summed over the warps, and the lane occupancy: wanting lanes over
+        32 x blocks staged."""
+        st = torch.zeros(((inputs[0].shape[0] + 31) // 32, len(packet.STATS)), dtype=torch.int32, device=dev)
+        packet_walk(kd, *inputs, depth, any_hit, stats=st)
+        tot = dict(zip(packet.STATS, (int(x) for x in st.sum(0, dtype=torch.int64))))
+        tot["warps"] = st.shape[0]
+        tot["lane_occupancy"] = tot["wanting_lanes"] / (32 * tot["blocks_staged"]) if tot["blocks_staged"] else 0.0
+        return tot
+
+    def record_tile(scene, cfg, o, d, raw):
+        """Every traversal launch of one tile's ``render_rays`` under
+        ``cfg``, in order -> [(mode, (o, d, t_max), stack depth)]."""
+        launched = []
+
+        def record(kd_, o_, d_, t_, depth_, any_hit_):
+            launched.append(("any_hit" if any_hit_ else "closest", (o_, d_, t_), depth_))
+            return packet_walk(kd_, o_, d_, t_, depth_, any_hit_)
+
+        with frame_walk(record), torch.no_grad():
+            render_rays(scene, o, d, raw, cfg)
+        return launched
+
+    def per_bounce(label, scene, cfg, o, d, raw):
+        """Both walks on every traversal launch of one tile's render, with
+        the bounce sort on and off: ms per launch in turns (per-ray, packet,
+        packet, per-ray; BOUNCE_REPS after 2 warm), the packet walk's
+        counts, and its parity with the per-ray walk on those inputs."""
+        rows = []
+        for sort in (True, False):
+            bounce = {"closest": 0, "any_hit": 0}
+            for mode, inputs, depth in record_tile(scene, dataclasses.replace(cfg, sort_bounces=sort), o, d, raw):
+                any_hit = mode == "any_hit"
+                par = packet.parity(scene.kd, packet_walk(scene.kd, *inputs, depth, any_hit),
+                                    per_ray(scene.kd, *inputs, depth, any_hit), inputs[0], inputs[1], any_hit)
+                check(packet.parity_holds(par), f"{label} per-bounce parity, sort_bounces={sort}, {mode} "
+                                                f"bounce {bounce[mode]}: {par}")
+                ms = time_turns(torch, {"per_ray": lambda: per_ray(scene.kd, *inputs, depth, any_hit),
+                                        "packet": lambda: packet_walk(scene.kd, *inputs, depth, any_hit)},
+                                BOUNCE_REPS)
+                rows.append(dict(sort_bounces=sort, mode=mode, bounce=bounce[mode], rays=inputs[0].shape[0],
+                                 live_rays=int((inputs[2] >= 0).sum()), per_ray_ms=ms["per_ray"],
+                                 packet_ms=ms["packet"], parity=par,
+                                 **packet_stats(scene.kd, inputs, depth, any_hit)))
+                bounce[mode] += 1
+        print(json.dumps({"per_bounce": {"scene": label, "rows": rows}}), flush=True)
+        for sort in (True, False):
+            for mode in ("closest", "any_hit"):
+                sel = [r for r in rows if r["sort_bounces"] == sort and r["mode"] == mode]
+                log(f"per-bounce {label} {mode} sort_bounces={sort}: packet ms "
+                    + ", ".join(f"{r['packet_ms']:.3f}" for r in sel) + "; per-ray ms "
+                    + ", ".join(f"{r['per_ray_ms']:.3f}" for r in sel) + "; lane occupancy "
+                    + ", ".join(f"{r['lane_occupancy']:.3f}" for r in sel))
+        return rows
 
     def edge_distance(verts, prim, o, d):
         """Barycentric distance of each ray's crossing of triangle ``prim``
@@ -464,17 +626,29 @@ def main(device: str = "cuda") -> int:
           * fp32 operations over 67 TFLOP/s: 33 per edge-sign test of a
             non-empty slot (18 products, 15 sums) and 33 per
             Möller–Trumbore distance.
+        For the packet walk the counts are the per-ray walk's, what these
+        rays need (a packet may visit more), and the per-ray walk is timed
+        beside it in turns.
         """
         any_hit = mode == "any_hit"
         ko, kdir, kt = inputs
         n = ko.shape[0]
         _, wrapper, plain = walks[name]
-        ms = time_ms(torch, lambda: wrapper(kd, ko, kdir, kt, depth, any_hit), 20)
+        stats_walk = wrapper
+        if name == "packet_traverse":
+            stats_walk = per_ray
+            turns = time_turns(torch, {"per_ray": lambda: per_ray(kd, ko, kdir, kt, depth, any_hit),
+                                       "packet": lambda: packet_walk(kd, ko, kdir, kt, depth, any_hit)},
+                               TIMING_REPS)
+            ms = turns["packet"]
+            extra = dict(extra, per_ray_ms=turns["per_ray"], packet_stats=packet_stats(kd, inputs, depth, any_hit))
+        else:
+            ms = time_ms(torch, lambda: wrapper(kd, ko, kdir, kt, depth, any_hit), TIMING_REPS)
         plain_ms = wall_s(torch, lambda: plain(kd, ko, kdir, kt, depth, any_hit))[0] * 1e3
         B, S = kd.block_orig.shape
         stats = torch.zeros((n, 4), dtype=torch.int32, device=dev)
         touched = torch.zeros((B, 2 + S), dtype=torch.int32, device=dev)
-        _, prim, found = wrapper(kd, ko, kdir, kt, depth, any_hit, stats=stats, touched=touched)
+        _, prim, found = stats_walk(kd, ko, kdir, kt, depth, any_hit, stats=stats, touched=touched)
         node_steps, blocks, slots, mt_slots = (int(x) for x in stats.sum(0, dtype=torch.int64))
         aabb_blocks = int(touched[:, 0].sum(dtype=torch.int64))
         edge_blocks = touched[:, 1] > 0
@@ -494,6 +668,9 @@ def main(device: str = "cuda") -> int:
                      blocks_tested=blocks, blocks_edge_tested=int(edge_blocks.sum()),
                      slots_tested=slots, distances=mt_slots, block_g_slots_read=g_slots,
                      block_tris_slots_read=tri_slots, **extra)
+        if name == "packet_traverse":
+            log(f"phase times packet_traverse[{mode}]: {n} rays, packet walk {ms:.3f} ms, "
+                f"per-ray walk {extra['per_ray_ms']:.3f} ms, packet counts {json.dumps(extra['packet_stats'])}")
         log(f"phase times {name}[{mode}]: {n} rays, {ms:.3f} ms/launch (plain {plain_ms:.1f} ms), "
             f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}: {nbytes} bytes, {flops} operations), "
             f"{node_steps} node steps, {blocks} blocks tested ({int(edge_blocks.sum())} distinct of {B}), "
@@ -586,21 +763,26 @@ def main(device: str = "cuda") -> int:
             f"{totals[2]} distances; equal to its plain version on every launch")
         return entry
 
-    # ---- 5. teapot parity: packet, mega and binned ----
+    # ---- 5. teapot parity: packet, per-ray, mega and binned ----
     depth = _stack_depth(kd, cfg)
     verts = scene.triangles.verts
     plains = {"plain": traverse_plain}
-    o_all, d_all, raw_all, tile, start = best_window(scene, cfg, packet.packet_traverse, depth)
+    o_all, d_all, raw_all, tile, start = best_window(scene, cfg, per_ray, depth)
     o, d, raw = (x[start:start + tile] for x in (o_all, d_all, raw_all))
     log(f"phase 5 parity tile: rays [{start}, {start + tile}) of {o_all.shape[0]}")
-    parity = {"packet_traverse": {}, "mega_walk": {}, "block_loop": {}}
+    parity = {"packet_traverse": {}, "packet_traverse_per_ray": {}, "mega_walk": {}, "block_loop": {}}
     timing_inputs = {}
     for k, (qo, qd, qt), (so, sd, st) in bounces(scene, cfg, o, d, raw, (0, LATER_BOUNCE), tile):
-        refs = closest_refs(kd, verts, depth, qo, qd, qt, plains, qo.shape[0])
-        pk = packet.packet_traverse(kd, qo, qd, qt, depth, False)
-        parity["packet_traverse"][f"closest_b{k}"] = check_closest(
-            f"bounce {k}", "packet_traverse", pk, refs, verts, qo, qd, qt)
-        refs["packet"] = (*pk[:2], pk[2] & (pk[0] < qt), qo.shape[0])
+        refs, raws = closest_refs(kd, verts, depth, qo, qd, qt, plains, qo.shape[0])
+        pr = per_ray(kd, qo, qd, qt, depth, False)
+        parity["packet_traverse_per_ray"][f"closest_b{k}"] = check_closest(
+            f"bounce {k}", "packet_traverse_per_ray", pr, refs, verts, qo, qd, qt)
+        pk = packet_walk(kd, qo, qd, qt, depth, False)
+        parity["packet_traverse"][f"closest_b{k}"] = check_packet(
+            f"bounce {k}", kd, pk, dict(raws, per_ray=pr), qo, qd)
+        parity["packet_traverse"][f"closest_b{k}"].update(check_closest(
+            f"bounce {k}", "packet_traverse", pk, {"brute": refs["brute"]}, verts, qo, qd, qt))
+        refs["per_ray"] = (*pr[:2], pr[2] & (pr[0] < qt), qo.shape[0])
         parity["mega_walk"][f"closest_b{k}"] = check_closest(
             f"bounce {k}", "mega_walk", mega.mega_traverse(kd, qo, qd, qt, depth, False), refs, verts,
             qo, qd, qt)
@@ -618,10 +800,13 @@ def main(device: str = "cuda") -> int:
         aplain = traverse_plain(kd, so, sd, st, depth, True)
         arefs = {"plain": (*aplain[1:], so.shape[0]),
                  "brute": (None, brute_any(verts, so, sd, st), so.shape[0])}
-        pk = packet.packet_traverse(kd, so, sd, st, depth, True)
+        pr = per_ray(kd, so, sd, st, depth, True)
+        parity["packet_traverse_per_ray"][f"any_b{k}"] = check_any(
+            f"bounce {k}", "packet_traverse_per_ray", pr, arefs, verts, so, sd)
+        arefs["per_ray"] = (*pr[1:], so.shape[0])
+        pk = packet_walk(kd, so, sd, st, depth, True)
         parity["packet_traverse"][f"any_b{k}"] = check_any(f"bounce {k}", "packet_traverse", pk, arefs,
                                                            verts, so, sd)
-        arefs["packet"] = (*pk[1:], so.shape[0])
         parity["mega_walk"][f"any_b{k}"] = check_any(
             f"bounce {k}", "mega_walk", mega.mega_traverse(kd, so, sd, st, depth, True), arefs, verts, so, sd)
         bk = binned.binned_traverse(kd, so, sd, st, depth, True)
@@ -641,32 +826,36 @@ def main(device: str = "cuda") -> int:
                 name, mode, kd, timing_inputs[mode], depth, launches, plain_err(par, mode, plains),
                 nodes_bytes, dict(scene="teapot", parity={"bounce0": par[f"{key}_b0"],
                                              f"bounce{LATER_BOUNCE}": par[f"{key}_b{LATER_BOUNCE}"]})))
+    rows = per_bounce("teapot", scene, cfg, o, d, raw)
+    for e in kernels[:2]:
+        e["per_bounce"] = [r for r in rows if e["name"] == f"packet_traverse[{r['mode']}]"]
     log("phase 6 teapot kernel times")
 
     # ---- 7. the teapot frame through the mega kernel ----
     mcfg = Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48, ray_tile=0,
                        traversal_backend="mega")
     mega_s, mega_img, mega_counts = frame(scene, mcfg, "teapot mega frame", "mega_walk")
-    mega_off = u8_off(quantize_u8, mega_img, img)
+    mega_off = u8_off(quantize_u8, mega_img, img_pr)
     check(mega_off < U8_TOLERANCE, f"mega teapot frame: {mega_off:.4%} of u8 channels off by > 1")
     for e in kernels:
         if e["name"].startswith("mega_walk"):
             e["launches"] = mega_counts[e["name"].split("[")[1][:-1]]
-    log(f"phase 7 mega frame: {mega_s:.3f} s, launches {mega_counts}, vs packet frame: "
-        f"{mega_off:.6%} of u8 channels off by > 1, max abs diff {float((mega_img - img).abs().max()):.3g}")
+    log(f"phase 7 mega frame: {mega_s:.3f} s, launches {mega_counts}, vs per-ray frame: "
+        f"{mega_off:.6%} of u8 channels off by > 1, max abs diff {float((mega_img - img_pr).abs().max()):.3g}")
     del mega_img
 
     # ---- 8. the teapot frame through the binned walk (block-loop kernel) ----
     bcfg = Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48, ray_tile=0,
                        traversal_backend="binned")
     binned_s, binned_img, binned_counts = frame(scene, bcfg, "teapot binned frame", "block_loop")
-    binned_off = u8_off(quantize_u8, binned_img, img)
+    binned_off = u8_off(quantize_u8, binned_img, img_pr)
     check(binned_off == 0.0, f"binned teapot frame: {binned_off:.4%} of u8 channels off by > 1 "
-                             "from the packet frame (the same leaf test: none may be)")
+                             "from the per-ray frame (the same leaf test and visit order: none may be)")
     log(f"phase 8 binned frame (full 1920x1080, not cut): {binned_s:.3f} s, launches per frame {binned_counts}, "
-        f"vs packet frame: {binned_off:.6%} of u8 channels off by > 1, "
-        f"max abs diff {float((binned_img - img).abs().max()):.3g}")
-    del img, binned_img
+        f"vs per-ray frame: {binned_off:.6%} of u8 channels off by > 1, "
+        f"max abs diff {float((binned_img - img_pr).abs().max()):.3g}; vs packet frame: "
+        f"{u8_off(quantize_u8, binned_img, img):.6%}")
+    del img, img_pr, binned_img
     for mode in ("closest", "any_hit"):
         key = "closest" if mode == "closest" else "any"
         walk_s, _, launched = binned_walk(kd, timing_inputs[mode], depth, mode == "any_hit")
@@ -764,17 +953,26 @@ def main(device: str = "cuda") -> int:
             brute_entries[only]["launches"] = bframes[backend][2]["closest"]
     pc = Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48,
                      **{k: v for k, v in BRUTE_FRAME.items() if k != "brute_threshold"})
-    bpk_s, bpk_img, bpk_counts = frame(bscene, pc, "480x270 packet frame", "packet_traverse")
+    # the packet walk's frame and the per-ray walk's, in turns (packet, per-ray, per-ray, packet)
+    first_s, bpk_img, bpk_counts = frame(bscene, pc, "480x270 packet frame", "packet_traverse")
+    bpk_s = [first_s]
+    with frame_walk(per_ray):
+        bpr_s = [frame(bscene, pc, "480x270 per-ray frame", "packet_traverse_per_ray")[0]]
+        bpr_s.append(wall_s(torch, lambda: render_image(bscene, pc, device=dev))[0])
+        bpr_img = render_image(bscene, pc, device=dev)
+    bpk_s.append(wall_s(torch, lambda: render_image(bscene, pc, device=dev))[0])
     check(torch.equal(bframes["pallas"][1], bframes["jnp"][1]),
           "480x270: the 'pallas' frame differs from the 'jnp' frame")
     offs = {b: u8_off(quantize_u8, bframes[b][1], bpk_img) for b in ("pallas", "plucker")}
-    check(all(v < U8_TOLERANCE for v in offs.values()), f"480x270 brute-force frames vs packet frame: {offs}")
+    offs["per_ray"] = u8_off(quantize_u8, bpr_img, bpk_img)
+    check(all(v < U8_TOLERANCE for v in offs.values()), f"480x270 frames vs packet frame: {offs}")
     log("phase 9 480x270 frames, 10 bounces, brute_threshold=6320: "
         + ", ".join(f"{b} {bframes[b][0]:.3f} s (launches {bframes[b][2]})" for b in bframes)
-        + f", packet {bpk_s:.3f} s (launches {bpk_counts}); 'pallas' equals 'jnp' bit for bit; "
+        + f"; without brute_threshold, in turns: packet walk {json.dumps(bpk_s)} s (launches {bpk_counts}), "
+        f"per-ray walk {json.dumps(bpr_s)} s; 'pallas' equals 'jnp' bit for bit; "
         f"u8 channels off by > 1 from the packet frame: {offs}")
     kernels += list(brute_entries.values())
-    del bframes, bpk_img, bscene
+    del bframes, bpk_img, bpr_img, bscene
 
     # ---- 10. the flagship scene: bench.py's dragon ----
     fcfg = Config(Width=1920, Height=1080, use_kdtree=True, ray_tile=0, MaxPrims=192, leaf_chunk_lanes=48)
@@ -792,21 +990,30 @@ def main(device: str = "cuda") -> int:
         f"{dkd.tre_tbl.shape[0]} treelets of {dkd.tre_tbl.shape[1]} rows, {dkd.top_tbl.shape[0]} top rows, "
         f"block_g {dkd.block_g.numel() * 4 / 1e6:.1f} MB")
 
-    # ---- 11. the flagship frame (auto: packet kernel) ----
-    dwarm_s, _ = wall_s(torch, lambda: render_image(dscene, fcfg, device=dev))
-    flag_s, flag_img, flag_counts = frame(dscene, fcfg, "dragon flagship frame", "packet_traverse")
-    log(f"phase 11 flagship frame: warm {dwarm_s:.3f} s, timed {flag_s:.3f} s, {pixels / flag_s:.0f} primary "
-        f"rays/s, mean {float(flag_img.mean()):.4f}, launches {read_counts()}")
+    # ---- 11. the flagship frame (auto: packet walk) ----
+    sort_default = _sort_bounces(dscene, fcfg, dev)
+    flag_frames = frame_set(dscene, fcfg, "dragon flagship frame", {
+        "per_ray": ({}, per_ray),
+        "sort_shadow=False": ({"sort_shadow": False}, packet_walk),
+        f"sort_bounces={not sort_default}": ({"sort_bounces": not sort_default}, packet_walk)})
+    flag_sorts = sort_samples(dscene, fcfg)
+    log(f"phase 11 flagship frame seconds with sort_bounces on and off, in turns: {json.dumps(flag_sorts)}")
+    flag_s, flag_counts = flag_frames[0]["default"], flag_frames[2]["default"]
+    flag_img, flag_img_pr = flag_frames[3], flag_frames[4]
+    log(f"phase 11 flagship frames (sort_bounces={sort_default} by default, sort_shadow="
+        f"{_sort_shadow(dscene, fcfg)}): seconds {json.dumps(flag_frames[0])}, u8 channels off by > 1 from "
+        f"the default frame {json.dumps(flag_frames[1])}, launches {json.dumps(flag_frames[2])}; "
+        f"{pixels / flag_s:.0f} primary rays/s, mean {float(flag_img.mean()):.4f}")
 
     # ---- 12. the flagship frame through the forest kernel ----
     ffcfg = Config(Width=1920, Height=1080, use_kdtree=True, ray_tile=0, MaxPrims=192, leaf_chunk_lanes=48,
                    traversal_backend="forest")
     forest_s, forest_img, forest_counts = frame(dscene, ffcfg, "dragon forest frame", "forest_walk")
-    forest_off = u8_off(quantize_u8, forest_img, flag_img)
+    forest_off = u8_off(quantize_u8, forest_img, flag_img_pr)
     check(forest_off < U8_TOLERANCE, f"forest dragon frame: {forest_off:.4%} of u8 channels off by > 1")
     log(f"phase 12 forest frame (full 1920x1080, not cut): {forest_s:.3f} s, launches {forest_counts}, "
-        f"vs flagship frame: {forest_off:.6%} of u8 channels off by > 1, "
-        f"max abs diff {float((forest_img - flag_img).abs().max()):.3g}")
+        f"vs the per-ray flagship frame: {forest_off:.6%} of u8 channels off by > 1, "
+        f"max abs diff {float((forest_img - flag_img_pr).abs().max()):.3g}")
     del forest_img
 
     # ---- 13. the flagship frame through "mega", which resolves to the binned walk ----
@@ -815,24 +1022,23 @@ def main(device: str = "cuda") -> int:
     resolved = _backend(dkd, bmcfg)
     check(resolved == "binned", f"traversal_backend='mega' on {dM} nodes resolved to {resolved!r}, not 'binned'")
     dbin_s, dbin_img, dbin_counts = frame(dscene, bmcfg, "dragon binned frame", "block_loop")
-    dbin_off = u8_off(quantize_u8, dbin_img, flag_img)
+    dbin_off = u8_off(quantize_u8, dbin_img, flag_img_pr)
     check(dbin_off < U8_TOLERANCE, f"binned dragon frame: {dbin_off:.4%} of u8 channels off by > 1")
     log(f"phase 13 traversal_backend='mega' on the dragon tree ({dM} nodes > 1024) resolves to {resolved!r}; "
         f"binned frame (full 1920x1080, not cut): {dbin_s:.3f} s, launches per frame {dbin_counts}, "
-        f"vs flagship frame: {dbin_off:.6%} of u8 channels off by > 1, "
-        f"max abs diff {float((dbin_img - flag_img).abs().max()):.3g}")
-    del dbin_img, flag_img
+        f"vs the per-ray flagship frame: {dbin_off:.6%} of u8 channels off by > 1, "
+        f"max abs diff {float((dbin_img - flag_img_pr).abs().max()):.3g}")
+    del dbin_img, flag_img, flag_img_pr
 
     # ---- 14. forest and binned parity on the dragon ----
     ddepth = _stack_depth(dkd, fcfg)
     dverts = dscene.triangles.verts
     dplains = {"forest_plain": traverse_forest_plain, "plain": traverse_plain}
-    o_all, d_all, raw_all, dtile, wstart = best_window(dscene, fcfg, packet.packet_traverse, ddepth,
-                                                        DRAGON_PARITY_RAYS)
+    o_all, d_all, raw_all, dtile, wstart = best_window(dscene, fcfg, per_ray, ddepth, DRAGON_PARITY_RAYS)
     w = slice(wstart, wstart + DRAGON_PARITY_RAYS)
     log(f"phase 14 parity window: rays [{wstart}, {wstart + DRAGON_PARITY_RAYS}) of {o_all.shape[0]}, "
         f"in the {dtile}-ray tile at {wstart // dtile * dtile}")
-    dpar = {"packet_traverse": {}, "forest_walk": {}, "block_loop": {}}
+    dpar = {"packet_traverse": {}, "packet_traverse_per_ray": {}, "forest_walk": {}, "block_loop": {}}
     dsoa = mt.swizzle_tris(dverts)
 
     def mt_brute(verts, o, d):
@@ -848,11 +1054,17 @@ def main(device: str = "cuda") -> int:
 
     for k, (qo, qd, qt), (so, sd, st) in bounces(dscene, fcfg, o_all[w], d_all[w], raw_all[w],
                                                  (0, LATER_BOUNCE), DRAGON_PARITY_RAYS):
-        refs = closest_refs(dkd, dverts, ddepth, qo, qd, qt, dplains, DRAGON_PARITY_RAYS, mt_brute)
-        pk = packet.packet_traverse(dkd, qo, qd, qt, ddepth, False)
-        dpar["packet_traverse"][f"closest_b{k}"] = check_closest(
-            f"bounce {k}", "packet_traverse", pk, refs, dverts, qo, qd, qt)
-        refs["packet"] = (*pk[:2], pk[2] & (pk[0] < qt), qo.shape[0])
+        refs, raws = closest_refs(dkd, dverts, ddepth, qo, qd, qt, dplains, DRAGON_PARITY_RAYS, mt_brute)
+        pr = per_ray(dkd, qo, qd, qt, ddepth, False)
+        dpar["packet_traverse_per_ray"][f"closest_b{k}"] = check_closest(
+            f"bounce {k}", "packet_traverse_per_ray", pr, refs, dverts, qo, qd, qt)
+        pk = packet_walk(dkd, qo, qd, qt, ddepth, False)
+        dpar["packet_traverse"][f"closest_b{k}"] = check_packet(
+            f"bounce {k}, dragon", dkd, pk, dict(raws, per_ray=pr), qo, qd)
+        dpar["packet_traverse"][f"closest_b{k}"].update(check_closest(
+            f"bounce {k}", "packet_traverse", pk, {"brute": refs["brute"]}, dverts, qo, qd, qt))
+        refs["per_ray"] = (*pr[:2], pr[2] & (pr[0] < qt), qo.shape[0])
+        del raws
         dpar["forest_walk"][f"closest_b{k}"] = check_closest(
             f"bounce {k}", "forest_walk", forest.forest_traverse(dkd, qo, qd, qt, ddepth, False), refs,
             dverts, qo, qd, qt)
@@ -863,14 +1075,15 @@ def main(device: str = "cuda") -> int:
         L = dscene.lights.position.shape[0]
         sub = torch.cat([torch.arange(li * DRAGON_PARITY_RAYS, li * DRAGON_PARITY_RAYS + DRAGON_BRUTE_RAYS,
                                       device=dev) for li in range(L)])
-        outs = {"packet_traverse": packet.packet_traverse(dkd, so, sd, st, ddepth, True),
+        outs = {"packet_traverse_per_ray": per_ray(dkd, so, sd, st, ddepth, True),
+                "packet_traverse": packet_walk(dkd, so, sd, st, ddepth, True),
                 "forest_walk": forest.forest_traverse(dkd, so, sd, st, ddepth, True),
                 "block_loop": binned.binned_traverse(dkd, so, sd, st, ddepth, True)}
         aplain = {name: walk(dkd, so, sd, st, ddepth, True) for name, walk in dplains.items()}
         arefs = {name: (*out[1:], so.shape[0]) for name, out in aplain.items()}
-        dpar["packet_traverse"][f"any_b{k}"] = check_any(f"bounce {k}", "packet_traverse",
-                                                         outs["packet_traverse"], arefs, dverts, so, sd)
-        arefs["packet"] = (*outs["packet_traverse"][1:], so.shape[0])
+        for kname in ("packet_traverse_per_ray", "packet_traverse"):
+            dpar[kname][f"any_b{k}"] = check_any(f"bounce {k}", kname, outs[kname], arefs, dverts, so, sd)
+        arefs["per_ray"] = (*outs["packet_traverse_per_ray"][1:], so.shape[0])
         dpar["forest_walk"][f"any_b{k}"] = check_any(f"bounce {k}", "forest_walk", outs["forest_walk"], arefs,
                                                      dverts, so, sd)
         dpar["block_loop"][f"any_b{k}"] = check_any(f"bounce {k}", "binned walk", outs["block_loop"], arefs,
@@ -886,7 +1099,8 @@ def main(device: str = "cuda") -> int:
 
     # ---- 15. flagship kernel times and bounds ----
     tstart = wstart // dtile * dtile
-    td = next(bounces(dscene, fcfg, *(x[tstart:tstart + dtile] for x in (o_all, d_all, raw_all)), (0,), dtile))
+    tile_rays = [x[tstart:tstart + dtile] for x in (o_all, d_all, raw_all)]
+    td = next(bounces(dscene, fcfg, *tile_rays, (0,), dtile))
     del o_all, d_all, raw_all
     dinputs = {"closest": td[1], "any_hit": td[2]}
     T, cap = dkd.tre_tbl.shape[:2]
@@ -903,6 +1117,11 @@ def main(device: str = "cuda") -> int:
             if name == "packet_traverse":
                 entry["name"] = f"packet_traverse[{mode},dragon]"
             kernels.append(entry)
+    rows = per_bounce("dragon", dscene, fcfg, *tile_rays)
+    for e in kernels:
+        if e["name"].startswith("packet_traverse[") and e["name"].endswith(",dragon]"):
+            e["per_bounce"] = [r for r in rows if e["name"] == f"packet_traverse[{r['mode']},dragon]"]
+    del tile_rays, rows
     for mode in ("closest", "any_hit"):  # the whole binned walk of the tile
         key = "closest" if mode == "closest" else "any"
         walk_s, _, launched = binned_walk(dkd, dinputs[mode], ddepth, mode == "any_hit")
@@ -931,13 +1150,14 @@ def main(device: str = "cuda") -> int:
             dev_ms[e.key] = dev_ms.get(e.key, 0.0) + us / 1e3
     busy = sum(dev_ms.values())
     if busy > 0:
-        ours = sum(v for k, v in dev_ms.items() if "packet_traverse_kernel" in k)
+        ours = sum(v for k, v in dev_ms.items() if "packet_traverse" in k)
         top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
         print(json.dumps({"profile": {
             "frame": "dragon flagship, auto", "frame_wall_ms": prof_wall_ms, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / prof_wall_ms),
             "traversal_kernel_ms": ours, "traversal_share_of_busy": ours / busy,
-            "traversal_launches": launches_per_frame,
+            "traversal_launches": launches_per_frame, "traversal_launches_by_mode": dict(packet.launches),
+            "traversal_mean_launch_ms": ours / max(launches_per_frame, 1),
             "top": [{"name": k[:90], "ms": v} for k, v in top]}}), flush=True)
     else:
         print(json.dumps({"profile": "not measured: the profiler recorded no device time"}), flush=True)

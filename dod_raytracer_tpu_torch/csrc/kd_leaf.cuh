@@ -1,5 +1,5 @@
 // Leaf-block test shared by the kd traversal kernels (packet_traverse.cu,
-// kd_walk.cu): the Plücker edge-sign test on block_g, then the
+// kd_walk.cu, block_loop.cu): the Plücker edge-sign test on block_g, then the
 // Möller–Trumbore distance on block_tris for the slots that pass it.  The
 // plain walks (ops/traverse.py, with ops/triangle.py plucker_row,
 // plucker_inside and mt_t_edges) compute the same test operation by
@@ -88,14 +88,81 @@ __device__ __forceinline__ float mt_distance(const float* tri, const float3& o,
   return __fmul_rn(dot, inv_det);
 }
 
-// One leaf block: every slot in order gets the edge-sign test, each sign
+// Where a block's edge rows come from: rows 0-5 of sections s0..s2 of
+// block_g.  `load(k, e, j, v)` fills v[0..W) with row k, section e, slots
+// j..j+W-1.
+//
+// GlobalRows reads one block of block_g (B, 16, 5*spad) through __ldg
+// (the per-ray walks).  SharedRows reads a block staged in shared memory
+// as [k][e][spad] (the packet walk, packet_traverse.cu): 18 rows of spad
+// floats, 16-byte aligned, so W = 4 slots come in one 16-byte load.
+struct GlobalRows {
+  const float* g;  // the block's (16, 5*spad) rows
+  int spad;
+  template <int W>
+  __device__ __forceinline__ void load(int k, int e, int j, float (&v)[W]) const {
+    const float* p = g + static_cast<size_t>(k) * 5 * spad + e * spad + j;
+#pragma unroll
+    for (int w = 0; w < W; ++w) v[w] = __ldg(p + w);
+  }
+};
+
+struct SharedRows {
+  const float* s;  // (6, 3, spad) staged rows
+  int spad;
+  template <int W>
+  __device__ __forceinline__ void load(int k, int e, int j, float (&v)[W]) const {
+    static_assert(W == 4, "staged rows are read 4 slots at a time");
+    const float4 x = *reinterpret_cast<const float4*>(s + (k * 3 + e) * spad + j);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  }
+};
+
+// Plücker edge signs of W consecutive slots j..j+W-1: each sign
 // r . column summed in row order with every product and sum rounded on its
 // own (triangle.py plucker_inside; no FMA contraction, no TF32: fp32
 // geometry must not pass through fused or reduced-precision products,
-// forest_kernel.py:35-38); a slot that passes gets its Möller–Trumbore t.
-// Closest-hit keeps the first strictly smaller t in slot order; any-hit
-// returns at the first hit.  Returns the winning slot (-1: none) and lowers
-// `best` to its t.
+// forest_kernel.py:35-38).  inside[w]: the three signs all > 0 or all < 0.
+template <int W, class Rows>
+__device__ __forceinline__ void edge_signs(const Rows& g, int j, const float r[6],
+                                           bool (&inside)[W]) {
+  float s0[W], s1[W], s2[W], v[W];
+  // s_e = d . (column rows 0-2) + (o x d) . (rows 3-5)
+  g.load(0, 0, j, v);
+#pragma unroll
+  for (int w = 0; w < W; ++w) s0[w] = __fmul_rn(r[0], v[w]);
+  g.load(0, 1, j, v);
+#pragma unroll
+  for (int w = 0; w < W; ++w) s1[w] = __fmul_rn(r[0], v[w]);
+  g.load(0, 2, j, v);
+#pragma unroll
+  for (int w = 0; w < W; ++w) s2[w] = __fmul_rn(r[0], v[w]);
+#pragma unroll
+  for (int k = 1; k < 6; ++k) {
+    g.load(k, 0, j, v);
+#pragma unroll
+    for (int w = 0; w < W; ++w) s0[w] = __fadd_rn(s0[w], __fmul_rn(r[k], v[w]));
+    g.load(k, 1, j, v);
+#pragma unroll
+    for (int w = 0; w < W; ++w) s1[w] = __fadd_rn(s1[w], __fmul_rn(r[k], v[w]));
+    g.load(k, 2, j, v);
+#pragma unroll
+    for (int w = 0; w < W; ++w) s2[w] = __fadd_rn(s2[w], __fmul_rn(r[k], v[w]));
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w)
+    inside[w] = (s0[w] > 0.0f && s1[w] > 0.0f && s2[w] > 0.0f) ||
+                (s0[w] < 0.0f && s1[w] < 0.0f && s2[w] < 0.0f);
+}
+
+// One leaf block read from global memory: every slot in order gets the
+// edge-sign test (edge_signs); a slot that passes gets its
+// Möller–Trumbore t.  Closest-hit keeps the first strictly smaller t in
+// slot order; any-hit returns at the first hit.  Returns the winning slot
+// (-1: none) and lowers `best` to its t.
 //
 // With kStats (measurement only), `work` counts [non-empty slots whose edge
 // signs were tested, slots whose t was computed], and `touched`, when set,
@@ -107,26 +174,14 @@ __device__ __forceinline__ int test_block(const float* G, const float* tris,
                                           const float r[6], const float3& o,
                                           const float3& d, float& best,
                                           int work[2], int* touched) {
-  const size_t row = 5 * static_cast<size_t>(spad);
   if (kStats && touched) touched[1] = 1;
+  const GlobalRows rows{G, spad};
   int best_j = -1;
   for (int j = 0; j < slots; ++j) {
     if (kStats) work[0] += __ldg(orig + j) >= 0;
-    // Plücker edge signs: s_k = d . (column rows 0-2) + (o x d) . (rows 3-5)
-    const float* col = G + j;
-    float s0 = __fmul_rn(r[0], __ldg(col));
-    float s1 = __fmul_rn(r[0], __ldg(col + spad));
-    float s2 = __fmul_rn(r[0], __ldg(col + 2 * spad));
-#pragma unroll
-    for (int k = 1; k < 6; ++k) {
-      const float* rk = col + k * row;
-      s0 = __fadd_rn(s0, __fmul_rn(r[k], __ldg(rk)));
-      s1 = __fadd_rn(s1, __fmul_rn(r[k], __ldg(rk + spad)));
-      s2 = __fadd_rn(s2, __fmul_rn(r[k], __ldg(rk + 2 * spad)));
-    }
-    const bool inside = (s0 > 0.0f && s1 > 0.0f && s2 > 0.0f) ||
-                        (s0 < 0.0f && s1 < 0.0f && s2 < 0.0f);
-    if (!inside) continue;
+    bool inside[1];
+    edge_signs<1>(rows, j, r, inside);
+    if (!inside[0]) continue;
     if (kStats) {
       ++work[1];
       if (touched) touched[2 + j] = 1;

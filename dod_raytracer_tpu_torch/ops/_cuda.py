@@ -88,13 +88,13 @@ def build_all(names, force: bool = False) -> list:
 
 def library(name: str, symbol: str, argtypes: list):
     """The bound C function ``symbol`` of ``csrc/<name>.cu`` (built if needed)."""
-    if name not in _libs:
+    if (name, symbol) not in _libs:
         lib = ctypes.CDLL(build(name)["path"])
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _libs[name] = fn
-    return _libs[name]
+        _libs[name, symbol] = fn
+    return _libs[name, symbol]
 
 
 def check(name, t, dtype, shape, device):

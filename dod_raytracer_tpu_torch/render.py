@@ -11,8 +11,11 @@ Per-bounce semantics (main.cpp:312-334):
 
 and rays terminate at their first miss.  ``render_image`` renders the
 frame in ray tiles, in 8x128 screen-block order when the frame divides
-into such blocks (an exact permutation).  The JAX package's bounce
-sorting, bounce rematerialization and dead-round skipping are not ported.
+into such blocks (an exact permutation).  ``cfg.sort_bounces`` re-sorts
+the wavefront every bounce by ``_sort_keys`` (another exact permutation)
+so that the packet walk's warps hold neighbouring rays.  The JAX
+package's bounce rematerialization and dead-round skipping are not
+ported.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from .camera import primary_rays
 from .config import Config
-from .intersect import closest_hit
+from .intersect import _prefer_brute, closest_hit
 from .shading import lighting_factor
 from .utils.math import reflect
 
@@ -30,9 +33,79 @@ _BLOCK_H, _BLOCK_W = 8, 128
 
 
 def _check_knobs(cfg) -> None:
-    for knob in ("sort_bounces", "remat_bounces", "bounce_skip"):
+    for knob in ("remat_bounces", "bounce_skip"):
         if getattr(cfg, knob, None):
             raise NotImplementedError(f"{knob} is not ported yet")
+
+
+def _part1by2(v):
+    """Spread 10 bits of v to every 3rd bit (Morton interleave helper)."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def _sort_keys(scene, o, d):
+    """(N,) int32 sort key of the JAX package's ``_sort_keys``
+    (``render.py:45-82``), bit for bit: a 9-bit direction bin (dominant
+    face x 3+3-bit in-face u, v) over a 21-bit Morton code (7 bits an
+    axis) of the origin inside the kd world bounds ([-6, 6]^3 without a
+    tree)."""
+    kd = scene.kd
+    if kd is not None:
+        bmin, bmax = kd.bounds_min, kd.bounds_max
+    else:
+        bmin = torch.full((3,), -6.0, device=o.device)
+        bmax = torch.full((3,), 6.0, device=o.device)
+    q = torch.clamp((o - bmin[None, :]) / torch.clamp_min(bmax - bmin, 1e-6)[None, :], 0.0, 1.0)
+    cell = (q * 127.0).to(torch.int32)  # 7 bits/axis -> 21-bit morton
+    morton = _part1by2(cell[:, 0]) | (_part1by2(cell[:, 1]) << 1) | (_part1by2(cell[:, 2]) << 2)
+
+    ad = torch.abs(d)
+    axis = torch.argmax(ad, dim=1)  # dominant axis, the first of equal ones
+    mx = torch.clamp_min(torch.amax(ad, dim=1), 1e-30)
+    d_ax = torch.gather(d, 1, axis[:, None])[:, 0]
+    face = axis * 2 + (d_ax < 0)  # 6 faces
+    # the two minor components, in dominant-axis order
+    others = torch.stack([d[:, 1], d[:, 2], d[:, 0]], dim=1)
+    others2 = torch.stack([d[:, 2], d[:, 0], d[:, 1]], dim=1)
+    u = torch.gather(others, 1, axis[:, None])[:, 0] / mx
+    v = torch.gather(others2, 1, axis[:, None])[:, 0] / mx
+    qu = torch.clamp(((u + 1.0) * 3.5).to(torch.int32), 0, 7)  # 3 bits
+    qv = torch.clamp(((v + 1.0) * 3.5).to(torch.int32), 0, 7)
+    dirbin = (face * 64 + qu * 8 + qv).to(torch.int32)  # 9 bits
+    return dirbin * (1 << 21) + morton
+
+
+def _bounce_perm(scene, o, d, active, cfg):
+    """The permutation that re-sorts a bounce's wavefront (JAX
+    ``render.py:94-113``): a stable sort on ``_sort_keys``, origin-major
+    unless ``cfg.sort_dir_major``, killed rays last with
+    ``cfg.sort_kill_tail``."""
+    key = _sort_keys(scene, o, d)
+    if not getattr(cfg, "sort_dir_major", False):
+        # origin-major variant: morton high bits, dirbin low
+        key = (key & ((1 << 21) - 1)) * (1 << 9) + (key >> 21)
+    if getattr(cfg, "sort_kill_tail", False):
+        key = torch.where(active, key, 1 << 30)  # both key variants are < 2^30
+    return torch.sort(key, stable=True).indices
+
+
+def _sort_bounces(scene, cfg, device) -> bool:
+    """``cfg.sort_bounces``; None = the JAX package's rule, on where the
+    descend is the packet walk: CUDA tensors, a kd tree that the mesh
+    does not bypass for brute force, and the packet backend (config.py
+    says which measurement set this default).  Off on the CPU."""
+    sort = getattr(cfg, "sort_bounces", None)
+    if sort is not None:
+        return bool(sort)
+    if torch.device(device).type != "cuda" or scene.kd is None or _prefer_brute(scene, cfg):
+        return False
+    from .ops.traverse import _backend
+
+    return _backend(scene.kd, cfg) == "packet"
 
 
 def render_rays(scene, o, d, pixel_dirs, cfg: Config) -> torch.Tensor:
@@ -41,7 +114,16 @@ def render_rays(scene, o, d, pixel_dirs, cfg: Config) -> torch.Tensor:
     n = o.shape[0]
     final = torch.zeros_like(o)
     active = torch.ones((n,), dtype=torch.bool, device=o.device)
+    sort = _sort_bounces(scene, cfg, o.device)
+    if sort:
+        # slot i of the sorted wavefront holds pixel slot_pix[i]
+        slot_pix = torch.arange(n, device=o.device)
     for k in range(cfg.recursion_depth):
+        if sort:
+            # every per-ray quantity rides along (an exact permutation)
+            perm = _bounce_perm(scene, o, d, active, cfg)
+            o, d, pixel_dirs, final, active, slot_pix = (
+                x[perm] for x in (o, d, pixel_dirs, final, active, slot_pix))
         # dead rays get t_max=-1: every intersection test rejects them
         t_max = torch.where(active, float("inf"), -1.0)
         hit = closest_hit(scene, o, d, cfg, t_max=t_max)
@@ -55,6 +137,10 @@ def render_rays(scene, o, d, pixel_dirs, cfg: Config) -> torch.Tensor:
         o_new = hit.point + d_new * cfg.Epsilon  # main.cpp:333
         o = torch.where(active[:, None], o_new, o)
         d = torch.where(active[:, None], d_new, d)
+    if sort:
+        out = torch.empty_like(final)
+        out[slot_pix] = final  # back to pixel order
+        return out
     return final
 
 

@@ -28,13 +28,35 @@ SHADOW_OFFSET = 0.01  # main.cpp:192
 
 
 def _batch_lights(cfg, device) -> bool:
-    for knob in ("shadow_reverse", "sort_shadow"):
-        if getattr(cfg, knob, None):
-            raise NotImplementedError(f"{knob} is not ported yet")
+    if getattr(cfg, "shadow_reverse", None):
+        raise NotImplementedError("shadow_reverse is not ported yet")
     batch = getattr(cfg, "shadow_batch_lights", None)
     if batch is None:
         batch = device.type == "cuda"
     return batch
+
+
+def _sort_shadow(scene, cfg) -> bool:
+    """``cfg.sort_shadow``; None = the JAX package's rule on every
+    device: on over trees of 1,024 or more leaf blocks."""
+    sort = getattr(cfg, "sort_shadow", None)
+    if sort is None:
+        kd = scene.kd
+        return kd is not None and kd.block_g is not None and kd.block_g.shape[0] >= 1024
+    return bool(sort)
+
+
+def _shadow_perm(scene, o, d, t_max, n_lights: int):
+    """The permutation that groups each light's shadow rays by hit-point
+    Morton code (JAX ``shading.py:122-146``, forward rays): a stable sort
+    on the 21-bit origin key, killed pairs (t_max < 0) at the tail of
+    their light's segment."""
+    from .render import _sort_keys
+
+    key = _sort_keys(scene, o, d) & ((1 << 21) - 1)
+    key = torch.where(t_max < 0.0, 1 << 21, key)
+    light_ix = torch.arange(n_lights, dtype=torch.int32, device=o.device).repeat_interleave(o.shape[0] // n_lights)
+    return torch.sort(key + light_ix * (1 << 22), stable=True).indices
 
 
 def shadow_rays(scene, points, active=None, relevant=None):
@@ -64,14 +86,20 @@ def light_visibility(scene, points, cfg, active=None, relevant=None) -> torch.Te
 
     Two execution shapes with identical visibility bits (occlusion is
     elementwise over rays): one any-hit query over the flattened (L*N,)
-    shadow wavefront (``shadow_batch_lights``), or L sequential N-ray
-    queries.  Pairs masked out by ``active`` or ``relevant`` report
+    shadow wavefront (``shadow_batch_lights``), sorted per light by
+    hit-point Morton code where ``_sort_shadow`` says so (an exact
+    permutation), or L sequential N-ray queries.  Pairs masked out by ``active`` or ``relevant`` report
     *visible*; callers only mask pairs whose contribution is exactly zero.
     """
     if _batch_lights(cfg, points.device):
         o, d, t = shadow_rays(scene, points, active, relevant)
-        blocked = occluded(scene, o, d, t, cfg).reshape(-1, points.shape[0])
-        return ~blocked.T
+        if _sort_shadow(scene, cfg):
+            perm = _shadow_perm(scene, o, d, t, scene.lights.position.shape[0])
+            blocked = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
+            blocked[perm] = occluded(scene, o[perm], d[perm], t[perm], cfg)
+        else:
+            blocked = occluded(scene, o, d, t, cfg)
+        return ~blocked.reshape(-1, points.shape[0]).T
 
     kill0 = torch.zeros(points.shape[:1], dtype=torch.bool, device=points.device)
     if active is not None:

@@ -1,6 +1,7 @@
-"""The CUDA kernels (the packet, mega and forest walks, the binned walk's
-block-loop leaf stage, the Möller–Trumbore and Plücker brute force) vs
-their plain versions, on a CUDA device.
+"""The CUDA kernels (the packet walk and the per-ray walk it replaced, the
+mega and forest walks, the binned walk's block-loop leaf stage, the
+Möller–Trumbore and Plücker brute force) vs their plain versions, on a
+CUDA device.
 
 The kernels have no CPU mode, so every test here skips without a card.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -8,9 +9,14 @@ JAX is not installed:  python -m pytest --noconftest tests/test_torch_cuda.py
 
 Parity rule: the plain walks compute the kernels' leaf test (Plücker
 edge signs on block_g, Möller–Trumbore t on block_tris, each operation
-in the kernels' order) in the kernels' visit order, so a kernel and its
-plain walk, on the card or on the CPU, give the same bits: hit masks
-equal, t and prims equal where both hit.
+in the kernels' order) in the kernels' visit order, so a per-ray kernel
+and its plain walk, on the card or on the CPU, give the same bits: hit
+masks equal, t and prims equal where both hit.  The packet walk visits
+the union of its warp's leaves in its own order, so it is held to the
+JAX package's packet rule (tests/test_packet.py), tightened: hit masks
+and any-hit bits equal, closest-hit t bit-equal, and a prim may differ
+only where both triangles' Möller–Trumbore t are bit-equal
+(``ops.packet.parity``).
 """
 
 import dataclasses
@@ -20,12 +26,34 @@ import pytest
 import torch
 
 import dod_raytracer_tpu_torch as T
-from dod_raytracer_tpu_torch.mesh import load_mesh_asset
+from dod_raytracer_tpu_torch.mesh import load_mesh_asset, procedural_dragon
 from dod_raytracer_tpu_torch.ops import binned, forest, mega, mt, packet, plucker
 from dod_raytracer_tpu_torch.ops import traverse as ttrav
 from dod_raytracer_tpu_torch.ops.triangle import brute_force_closest
+from dod_raytracer_tpu_torch.shading import _shadow_perm, shadow_rays
 
 N = 4096
+PACKET_WALKS = ["packet", "per_ray"]  # the frame's kernel, the per-ray walk it replaced
+
+
+def _packet_walk(name):
+    """(wrapper, its launch counts)."""
+    if name == "packet":
+        return packet.packet_traverse, packet.launches
+    return packet.packet_traverse_per_ray, packet.per_ray_launches
+
+
+def assert_walk_parity(name, kd, got, ref, o, d, any_hit):
+    """The per-ray walk: every output bit for bit (any-hit: the hit bits);
+    the packet walk: its parity rule.  Returns the prim ties."""
+    if name == "per_ray" or any_hit:
+        assert torch.equal(got[2], ref[2])
+        if not any_hit:
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        return 0
+    res = packet.parity(kd, got, ref, o, d, any_hit)
+    assert packet.parity_holds(res), res
+    return res["prim_ties"]
 
 
 @pytest.fixture(scope="module")
@@ -57,67 +85,89 @@ def make_rays(case, seed):
     return [torch.from_numpy(x).cuda() for x in (o, d.astype(np.float32), t_max)]
 
 
+@pytest.mark.parametrize("walk", PACKET_WALKS)
 @pytest.mark.parametrize("case", ["unclipped", "clipped", "inside"])
-def test_closest_matches_plain_walk(teapot_kd, case):
+def test_closest_matches_plain_walk(teapot_kd, case, walk):
     _, kd, depth = teapot_kd
     o, d, t_max = make_rays(case, seed=4)
-    before = packet.launches["closest"]
-    tk, pk, fk = packet.packet_traverse(kd, o, d, t_max, depth, False)
-    assert packet.launches["closest"] == before + 1
-    tp, pp, fp = ttrav.traverse_plain(kd, o, d, t_max, depth, False)
-    hk = (fk & (tk < t_max)).cpu().numpy()
-    hp = (fp & (tp < t_max)).cpu().numpy()
-    assert hp.sum() > N // 8
-    np.testing.assert_array_equal(hk, hp)
-    tk, tp, pk, pp = (x.cpu().numpy() for x in (tk, tp, pk, pp))
-    np.testing.assert_array_equal(tk[hp], tp[hp])
-    np.testing.assert_array_equal(pk[hp], pp[hp])
+    wrapper, counts = _packet_walk(walk)
+    before = counts["closest"]
+    got = wrapper(kd, o, d, t_max, depth, False)
+    assert counts["closest"] == before + 1
+    ref = ttrav.traverse_plain(kd, o, d, t_max, depth, False)
+    assert int((ref[2] & (ref[0] < t_max)).sum()) > N // 8
+    assert_walk_parity(walk, kd, got, ref, o, d, False)
 
 
+@pytest.mark.parametrize("walk", PACKET_WALKS)
 @pytest.mark.parametrize("case", ["unclipped", "clipped", "inside"])
-def test_any_hit_matches_plain_walk(teapot_kd, case):
+def test_any_hit_matches_plain_walk(teapot_kd, case, walk):
     _, kd, depth = teapot_kd
     o, d, t_max = make_rays(case, seed=5)
-    before = packet.launches["any_hit"]
-    _, _, fk = packet.packet_traverse(kd, o, d, t_max, depth, True)
-    assert packet.launches["any_hit"] == before + 1
+    wrapper, counts = _packet_walk(walk)
+    before = counts["any_hit"]
+    _, _, fk = wrapper(kd, o, d, t_max, depth, True)
+    assert counts["any_hit"] == before + 1
     _, _, fp = ttrav.traverse_plain(kd, o, d, t_max, depth, True)
     np.testing.assert_array_equal(fk.cpu().numpy(), fp.cpu().numpy())
 
 
-def test_wrapper_rejects_bad_inputs(teapot_kd):
+@pytest.mark.parametrize("walk", PACKET_WALKS)
+def test_wrapper_rejects_bad_inputs(teapot_kd, walk):
     _, kd, depth = teapot_kd
     o, d, t_max = make_rays("unclipped", seed=6)
+    wrapper, counts = _packet_walk(walk)
+    before = dict(counts)
     with pytest.raises(TypeError):
-        packet.packet_traverse(kd, o.double(), d, t_max, depth, False)
+        wrapper(kd, o.double(), d, t_max, depth, False)
     with pytest.raises(ValueError):
-        packet.packet_traverse(kd, o[:, :2].contiguous(), d, t_max, depth, False)
+        wrapper(kd, o[:, :2].contiguous(), d, t_max, depth, False)
     with pytest.raises(ValueError):
-        packet.packet_traverse(kd, o, d, t_max, 65, False)
+        wrapper(kd, o, d, t_max, 65, False)
+    if walk == "packet":
+        with pytest.raises(ValueError, match="stack"):  # the warp's stack may not drop an entry
+            wrapper(kd, o, d, t_max, kd.max_depth - 1, False)
+        with pytest.raises(ValueError, match="stack"):  # nor can it size a tree of unknown depth
+            wrapper(dataclasses.replace(kd, max_depth=0), o, d, t_max, depth, False)
+    assert counts == before
 
 
-def test_wrapper_rejects_missing_kd_tables(teapot_kd):
+@pytest.mark.parametrize("walk", PACKET_WALKS)
+def test_wrapper_rejects_missing_kd_tables(teapot_kd, walk):
     _, kd, depth = teapot_kd
     o, d, t_max = make_rays("unclipped", seed=6)
-    before = dict(packet.launches)
-    for name in ("block_g", "block_aabb", "block_tris"):
+    wrapper, counts = _packet_walk(walk)
+    before = dict(counts)
+    for name in ("block_g", "block_aabb", "block_tris", "block_orig"):
         with pytest.raises(ValueError, match=name):
-            packet.packet_traverse(dataclasses.replace(kd, **{name: None}), o, d, t_max, depth, False)
-    assert packet.launches == before
+            wrapper(dataclasses.replace(kd, **{name: None}), o, d, t_max, depth, False)
+    assert counts == before
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_stats_build_gives_the_same_result(teapot_kd, any_hit):
+    """Both walks' measurement builds give their render builds' outputs;
+    the per-ray counts agree with its marks, the packet counts are
+    consistent."""
     _, kd, depth = teapot_kd
     o, d, t_max = make_rays("clipped", seed=7)
-    ref = packet.packet_traverse(kd, o, d, t_max, depth, any_hit)
+    ref = packet.packet_traverse_per_ray(kd, o, d, t_max, depth, any_hit)
     stats, touched = _stats_outputs(kd)
-    got = packet.packet_traverse(kd, o, d, t_max, depth, any_hit, stats=stats, touched=touched)
+    got = packet.packet_traverse_per_ray(kd, o, d, t_max, depth, any_hit, stats=stats, touched=touched)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     _check_stats(kd, stats, touched, aabb=True)
     with pytest.raises(ValueError, match="stats"):
-        packet.packet_traverse(kd, o, d, t_max, depth, any_hit, touched=touched)
+        packet.packet_traverse_per_ray(kd, o, d, t_max, depth, any_hit, touched=touched)
+    ref = packet.packet_traverse(kd, o, d, t_max, depth, any_hit)
+    wstats = torch.zeros(((N + 31) // 32, len(packet.STATS)), dtype=torch.int32, device="cuda")
+    got = packet.packet_traverse(kd, o, d, t_max, depth, any_hit, stats=wstats)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    steps, staged, wanting, _, distances = wstats.long().sum(0).tolist()
+    assert steps > 0 and staged > 0 and 0 < wanting <= 32 * staged and distances > 0
+    with pytest.raises(ValueError, match="stats"):
+        packet.packet_traverse(kd, o, d, t_max, depth, any_hit, stats=stats)  # the per-ray shape
 
 
 def _stats_outputs(kd):
@@ -142,6 +192,102 @@ def _check_stats(kd, stats, touched, aabb):
         assert not (marks[:, 1] & ~marks[:, 0]).any()  # edge-tested blocks had their AABB read
     else:
         assert not marks[:, 0].any()
+
+
+@pytest.fixture(scope="module")
+def dragon_kd():
+    """The 40k-triangle dragon (MaxPrims=32, leaf_chunk_lanes=32: blocks of
+    256 slots, a deeper tree than the teapot's), on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    tv, tn = procedural_dragon(40000)
+    cfg = T.Config(MaxPrims=32, leaf_chunk_lanes=32)
+    b = T.SceneBuilder()
+    b.add_mesh(tv, tn)
+    kd = b.build(cfg, device="cuda").kd
+    return tv, kd, ttrav._stack_depth(kd, cfg)
+
+
+def edge_rays(tv, kd, case, seed, n=N):
+    """Rays of one hard case for the packet walk, on the card:
+    'incoherent': origins inside the mesh bounds, random directions, so a
+    warp's 32 walks share little; 'split_planes': origins exactly on
+    interior nodes' split planes, half of them also parallel to that axis
+    (t_plane and the AABB slabs NaN); 'dead_tail': rays aimed at the mesh
+    with a third killed (t_max = -1) and moved to the tail, as sort_shadow
+    leaves them."""
+    rng = np.random.default_rng(seed)
+    lo, hi = tv.reshape(-1, 3).min(0), tv.reshape(-1, 3).max(0)
+    o = (lo + rng.random((n, 3)) * (hi - lo)).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    t_max = np.full((n,), np.inf, np.float32)
+    if case == "split_planes":
+        flag = kd.node_flag.cpu().numpy()
+        split = kd.node_split.cpu().numpy()
+        interior = np.nonzero(flag < 3)[0]
+        pick = interior[rng.integers(0, interior.shape[0], n)]
+        axis = flag[pick]
+        o[np.arange(n), axis] = split[pick]
+        flat = np.arange(n) % 2 == 0
+        d[flat, axis[flat]] = 0.0
+    elif case == "dead_tail":
+        o = (lo - 0.5 * (hi - lo) + rng.random((n, 3)) * 2 * (hi - lo)).astype(np.float32)
+        aim = tv[rng.integers(0, tv.shape[0], n)].mean(axis=1)
+        d = (aim - o).astype(np.float32)
+        t_max[n - n // 3:] = -1.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (o, d.astype(np.float32), t_max)]
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", ["incoherent", "split_planes", "dead_tail"])
+@pytest.mark.parametrize("scene", ["teapot", "dragon"])
+def test_packet_walk_hard_cases(teapot_kd, dragon_kd, scene, case, any_hit):
+    """The packet walk against the plain walk and the per-ray kernel, on
+    ray counts that are not a multiple of 32 and below 32."""
+    tv, kd, depth = teapot_kd if scene == "teapot" else dragon_kd
+    o, d, t_max = edge_rays(tv, kd, case, seed=21)
+    hits = 0
+    for n in (N - 7, 5):
+        ro, rd, rt = (x[:n].contiguous() for x in (o, d, t_max))
+        ref = ttrav.traverse_plain(kd, ro, rd, rt, depth, any_hit)
+        per_ray = packet.packet_traverse_per_ray(kd, ro, rd, rt, depth, any_hit)
+        assert torch.equal(per_ray[2], ref[2])
+        hits += int(ref[2].sum())
+        got = packet.packet_traverse(kd, ro, rd, rt, depth, any_hit)
+        assert_walk_parity("packet", kd, got, ref, ro, rd, any_hit)
+        if case == "dead_tail":
+            dead = rt < 0
+            assert not got[2][dead].any() and torch.equal(got[0][dead], rt[dead])
+    assert hits > 0
+
+
+@pytest.mark.parametrize("sort", [False, True])
+def test_packet_walk_shadow_batches(teapot_kd, dragon_kd, sort):
+    """Any-hit on a batch of shadow rays (3 lights, pairs killed at
+    random), unsorted and sorted per light by hit-point Morton code
+    (``sort_shadow``), against the per-ray kernel and the plain walk."""
+    import types
+
+    for tv, kd, depth in (teapot_kd, dragon_kd):
+        o, d, t_max = edge_rays(tv, kd, "dead_tail", seed=22, n=2048)
+        t, _, found = packet.packet_traverse_per_ray(kd, o, d, t_max, depth, False)
+        points = (o + d * torch.where(found, t, 0.0)[:, None])[found]
+        rng = np.random.default_rng(23)
+        lo, hi = tv.reshape(-1, 3).min(0), tv.reshape(-1, 3).max(0)
+        lights = torch.from_numpy((lo + (rng.random((3, 3)) * 3 - 1) * (hi - lo)).astype(np.float32)).cuda()
+        relevant = torch.from_numpy(rng.random((points.shape[0], 3)) > 0.2).cuda()
+        so, sd, st = shadow_rays(types.SimpleNamespace(lights=types.SimpleNamespace(position=lights)),
+                                 points, relevant=relevant)
+        if sort:
+            perm = _shadow_perm(types.SimpleNamespace(kd=kd), so, sd, st, 3)
+            so, sd, st = so[perm], sd[perm], st[perm]
+        so, sd, st = so.contiguous(), sd.contiguous(), st.contiguous()
+        got = packet.packet_traverse(kd, so, sd, st, depth, True)
+        per_ray = packet.packet_traverse_per_ray(kd, so, sd, st, depth, True)
+        plain = ttrav.traverse_plain(kd, so, sd, st, depth, True)
+        assert bool(plain[2].any()) and not bool(plain[2].all())
+        assert torch.equal(got[2], per_ray[2]) and torch.equal(got[2], plain[2])
 
 
 @pytest.fixture(scope="module")
@@ -170,8 +316,9 @@ def _walks(teapot_kd, forest_kd):
 @pytest.mark.parametrize("case", ["unclipped", "clipped", "inside"])
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_walk_kernels_match_plain_walks(teapot_kd, forest_kd, case, any_hit):
-    """The mega and forest kernels vs their plain walks and vs the packet
-    kernel (the same leaf test and visit order)."""
+    """The mega and forest kernels vs their plain walks and vs the per-ray
+    packet kernel (the same leaf test and visit order), and the packet
+    walk vs them under its parity rule."""
     o, d, t_max = make_rays(case, seed=8)
     mode = "any_hit" if any_hit else "closest"
     for name, walk, counts, kd, depth, plain in _walks(teapot_kd, forest_kd):
@@ -179,13 +326,15 @@ def test_walk_kernels_match_plain_walks(teapot_kd, forest_kd, case, any_hit):
         tk, pk, fk = walk(kd, o, d, t_max, depth, any_hit)
         assert counts[mode] == before + 1, name
         tp, pp, fp = plain(kd, o, d, t_max, depth, any_hit)
-        tq, pq, fq = packet.packet_traverse(kd, o, d, t_max, depth, any_hit)
+        tq, pq, fq = packet.packet_traverse_per_ray(kd, o, d, t_max, depth, any_hit)
         assert torch.equal(fk, fp) and torch.equal(fk, fq), name
         if not any_hit:
             hit = fp & (tp < t_max)
             assert int(hit.sum()) > N // 8
             assert torch.equal(tk[hit], tp[hit]) and torch.equal(pk[hit], pp[hit]), name
             assert torch.equal(tk, tq) and torch.equal(pk, pq), name
+        assert_walk_parity("packet", kd, packet.packet_traverse(kd, o, d, t_max, depth, any_hit),
+                           (tk, pk, fk), o, d, any_hit)
 
 
 def test_dispatch_raises_on_missing_tables(teapot_kd):
@@ -232,7 +381,7 @@ def test_kernels_match_plain_walks_on_the_cpu(teapot_kd, forest_kd, any_hit):
     CPU, on the same tables and rays."""
     o, d, t_max = make_rays("clipped", seed=10)
     cpu = lambda x: x.cpu()
-    walks = [("packet", packet.packet_traverse, *teapot_kd[1:], ttrav.traverse_plain)]
+    walks = [(name, _packet_walk(name)[0], *teapot_kd[1:], ttrav.traverse_plain) for name in PACKET_WALKS]
     walks += [(name, walk, kd, depth, plain) for name, walk, _, kd, depth, plain in _walks(teapot_kd, forest_kd)]
     for name, walk, kd, depth, plain in walks:
         kd_cpu = dataclasses.replace(kd, **{f.name: cpu(getattr(kd, f.name)) for f in dataclasses.fields(kd)
@@ -241,7 +390,9 @@ def test_kernels_match_plain_walks_on_the_cpu(teapot_kd, forest_kd, any_hit):
         ref = plain(kd_cpu, cpu(o), cpu(d), cpu(t_max), depth, any_hit)
         assert bool(ref[2].any()), name
         assert torch.equal(got[2].cpu(), ref[2]), name
-        if not any_hit:
+        if name == "packet":
+            assert_walk_parity(name, kd, got, [x.cuda() for x in ref], o, d, any_hit)
+        elif not any_hit:
             for a, b in zip(got[:2], ref[:2]):
                 assert torch.equal(a.cpu(), b), name
 
@@ -300,10 +451,11 @@ def test_binned_walk_matches_plain_walks(teapot_kd, any_hit):
     for ref in plains:
         for a, b in zip(got, ref):
             assert torch.equal(a.cpu(), b.cpu())
-    pk = packet.packet_traverse(kd, o, d, t_max, depth, any_hit)
+    pk = packet.packet_traverse_per_ray(kd, o, d, t_max, depth, any_hit)
     assert torch.equal(got[2], pk[2])
     if not any_hit:
         assert torch.equal(got[0], pk[0]) and torch.equal(got[1], pk[1])
+    assert_walk_parity("packet", kd, packet.packet_traverse(kd, o, d, t_max, depth, any_hit), got, o, d, any_hit)
 
 
 def test_block_loop_stats_build_gives_the_same_result(teapot_kd):

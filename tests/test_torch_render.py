@@ -159,7 +159,7 @@ def test_unported_options_raise(default_pair):
     from dod_raytracer_tpu_torch.camera import primary_rays
 
     o, d, raw = primary_rays(8, 4, device="cpu")
-    for knob in ("sort_bounces", "remat_bounces", "bounce_skip", "shadow_reverse", "sort_shadow"):
+    for knob in ("remat_bounces", "bounce_skip", "shadow_reverse"):
         with pytest.raises(NotImplementedError):
             T.render_rays(tscene, o, d, raw, T.Config(**FRAME, **{knob: True}))
     with pytest.raises(ValueError):

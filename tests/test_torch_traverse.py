@@ -153,6 +153,21 @@ def test_packet_wrapper_on_cpu_counts_no_launch(teapot_pair):
     assert packet.launches == before
 
 
+def test_default_stack_fits_the_packet_walk(teapot_pair):
+    """The CUDA packet walk refuses a tree deeper than its stack; the
+    default config never asks it to (the build's depth budget is far below
+    64), while a shallower cfg.stack_depth still renders on the CPU, where
+    the plain walk drops its deepest entry as the JAX kernels do."""
+    _, _, tscene, tcfg = teapot_pair
+    kd = tscene.kd
+    assert 0 < kd.max_depth < T.Config().stack_depth
+    assert ttrav._stack_depth(kd, T.Config()) > kd.max_depth
+    o, d, t_max = (torch.from_numpy(x) for x in make_rays("unclipped", seed=5))
+    shallow = dataclasses.replace(tcfg, stack_depth=kd.max_depth - 1)
+    _, _, hit = ttrav.kd_closest(kd, tscene.triangles, o, d, t_max, shallow)
+    assert bool(hit.any())
+
+
 def test_backend_and_node_table(teapot_pair):
     _, _, tscene, tcfg = teapot_pair
     kd = tscene.kd
