@@ -7,9 +7,11 @@ Phases, each printed with its elapsed seconds as it ends:
   1. the card (nvidia-smi name and power limit) and the torch version;
   2. build of the CUDA kernels from csrc/ with plain nvcc, one process per
      source, all at once: packet_traverse.cu (the packet walk and the
-     per-ray walk it replaced; its whole -Xptxas -v is printed), kd_walk.cu
-     (mega and forest walks), block_loop.cu (the binned walk's leaf stage),
-     mt_closest.cu and plucker_closest.cu (brute force);
+     per-ray walk it replaced), kd_walk.cu (the mega and forest warp walks
+     and the per-ray walks they replaced; all three warp walks are one
+     template, kd_warp.cuh; both sources' whole -Xptxas -v is printed),
+     block_loop.cu (the binned walk's leaf stage), mt_closest.cu and
+     plucker_closest.cu (brute force);
   3. the reference scene from config.ini (1920x1080): 16 spheres, 6 walls,
      the cylinder, the teapot (6,320 triangles), 9 lights, 10 bounces, with
      the kd-tree shape MaxPrims=96, leaf_chunk_lanes=48;
@@ -21,21 +23,25 @@ Phases, each printed with its elapsed seconds as it ends:
      with sort_bounces flipped, each timed once and held to the first
      (u8 channels off by > 1), and 3 frames each with sort_bounces on and
      off, in turns; a 64x32 frame on the card must match the CPU path;
-  5. parity of the packet walk, the per-ray walk, the mega kernel and the
-     binned walk against the plain walk and brute force, on the triangle
-     queries at bounce 0 and a later bounce of the ray tile whose primary
-     rays hit the teapot most, and on the shadow rays of those bounces;
-     the mega kernel and the binned walk also against the per-ray walk;
-  6. the packet walk's and mega kernel's time per launch at the main
-     path's shapes, the per-ray walk's beside the packet walk's in turns, the plain walk's time on the same inputs, and the least
-     time the card could take (see ``kernel_entry``: the bytes these
-     inputs make the kernel read over 3.35 TB/s, or the fp32 operations of
-     its leaf tests over 67 TFLOP/s, whichever is larger); then both walks
+  5. parity of the packet walk and the per-ray walk it replaced, the mega
+     warp walk and its per-ray walk, and the binned walk against the plain
+     walk and brute force, on the triangle queries at bounce 0 and a later
+     bounce of the ray tile whose primary rays hit the teapot most, and on
+     the shadow rays of those bounces; the mega walks and the binned walk
+     also against the per-ray packet walk, the mega warp walk against the
+     packet walk on the same tree;
+  6. the packet and mega warp walks' time per launch at the main path's
+     shapes, each in turns with the per-ray walk it replaced, the plain
+     walk's time on the same inputs, and the least time the card could
+     take (see ``kernel_entry`` and ``work_bound``: the bytes these inputs
+     make the kernel read over 3.35 TB/s, or the fp32 operations of its
+     leaf tests over 67 TFLOP/s, whichever is larger); then all four walks
      per bounce over every traversal launch of one tile's render, with the
      bounce sort on and off (``per_bounce``);
-  7. the teapot frame with traversal_backend='mega' (the mega kernel),
-     timed once, against the per-ray frame of phase 4: u8 channels off by
-     > 1;
+  7. the teapot frame with traversal_backend='mega' (the mega warp walk),
+     one warm and one timed, against the per-ray frame of phase 4: u8
+     channels off by > 1; then 3 frames each with sort_bounces on and off,
+     in turns;
   8. the teapot frame with traversal_backend='binned' (the block-loop
      kernel), not cut, timed once, against the per-ray frame of phase 4:
      no u8 channel may be off by > 1; then the block-loop kernel's time per
@@ -59,25 +65,28 @@ Phases, each printed with its elapsed seconds as it ends:
      the same frame through the per-ray walk, with sort_shadow off, and
      with sort_bounces flipped, and 3 frames each with sort_bounces on and
      off, in turns;
- 12. the same frame with traversal_backend='forest' (the forest kernel),
-     timed once, against the per-ray frame of phase 11;
+ 12. the same frame with traversal_backend='forest' (the forest warp
+     walk), one warm and one timed, against the per-ray frame of phase 11;
+     then 3 frames each with sort_bounces on and off, in turns;
  13. the same frame with traversal_backend='mega', which resolves to the
      binned walk on this tree of 2,645 nodes (the resolution is printed),
      the full frame, timed once, against the per-ray frame of phase 11;
- 14. parity of the packet walk, the per-ray walk, the forest kernel and
-     the binned walk against the plain forest walk, the plain walk and
-     brute force on 65,536 rays of the dragon tile with the most bounce-0
-     dragon hits, at bounce 0 and bounce 3 and on their shadow rays, and
-     of the forest kernel and the binned walk against the per-ray walk.
+ 14. parity of the packet walk and its per-ray walk, the forest warp walk
+     and its per-ray walk, and the binned walk against the plain forest
+     walk, the plain walk and brute force on 65,536 rays of the dragon tile
+     with the most bounce-0 dragon hits, at bounce 0 and bounce 3 and on
+     their shadow rays; of the forest walks and the binned walk against
+     the per-ray packet walk, and of the forest warp walk against the
+     packet walk on the same tree.
      Closest-hit
      brute force is the Möller–Trumbore kernel, held first to the torch
      brute force on 4,096 of the rays; any-hit brute force is torch on the
      shadow rays of 4,096 points;
- 15. the packet walk's and forest kernel's times, plain times and bounds
-     at the flagship's shapes (262,144 closest-hit and 2,359,296 any-hit
-     rays of one tile), with the per-ray walk in turns beside the packet
-     walk, and both walks per bounce with the bounce
-     sort on and off (as phase 6); the whole binned walk of that tile and
+ 15. the packet and forest warp walks' times, plain times and bounds at
+     the flagship's shapes (262,144 closest-hit and 2,359,296 any-hit rays
+     of one tile), each in turns with the per-ray walk it replaced, and
+     all four walks per bounce with the bounce sort on and off (as phase
+     6); the whole binned walk of that tile and
      the block-loop kernel's entries over its launches; then the
      ``kernels`` JSON line;
  16. one profiled flagship frame: device time by kernel, the traversal
@@ -86,16 +95,18 @@ Phases, each printed with its elapsed seconds as it ends:
  17. the result line ``{"ok": true, "device": {...}}``.
 
 Parity rules.  Against the plain walks, and between the per-ray kernels
-(the per-ray packet walk, mega, forest, the binned walk), the outputs must
-be equal bit for bit: the plain walks compute the kernels' leaf test
+(the per-ray packet, mega and forest walks, the binned walk), the outputs
+must be equal bit for bit: the plain walks compute the kernels' leaf test
 (Plücker edge signs on block_g, then the Möller–Trumbore t on block_tris,
 every operation in the kernels' order) and their visit order, so hit masks
-are equal, and t and prims are equal wherever both hit.  The packet walk
-visits the union of its warp's leaves in its own order, so it is held to
-the JAX package's rule for its packet kernel (tests/test_packet.py),
-tightened (``ops.packet.parity``): hit masks and any-hit bits equal,
-closest-hit t bit-equal, and a prim may differ only where both
-triangles' Möller–Trumbore t are bit-equal; such ties are counted.  The binned walk's
+are equal, and t and prims are equal wherever both hit.  The warp walks
+(packet, mega, forest: one template over three node layouts) visit the
+union of a warp's leaves in the warp's order, so they are held to the JAX
+package's rule for its packet kernel (tests/test_packet.py), tightened
+(``ops.packet.parity``): hit masks and any-hit bits equal, closest-hit t
+bit-equal, and a prim may differ only where both triangles'
+Möller–Trumbore t are bit-equal; such ties are counted, and whether every
+bit is equal besides (``bits_equal``).  The binned walk's
 any-hit t and prims must equal the plain walks' too (the same block-closest
 leaf stage; the per-ray kernels stop at a block's first hit slot, so only
 their any-hit bits are compared).  Brute force is a
@@ -163,7 +174,8 @@ MT_OPS = 46  # fp32 operations per ray-triangle pair, mt_closest.cu (27 mul, 18 
 PLUCKER_OPS = 46  # plucker_closest.cu (25 mul, 20 add, 1 div)
 U8_TOLERANCE = 0.01  # golden tolerance: fraction of u8 channels off by > 1
 TIMING_REPS = 20  # CUDA-event launches per timing, after 2 warm
-BOUNCE_REPS = 5  # the same, per bounce of a tile's render
+BOUNCE_REPS = 3  # the same, per bounce of a tile's render, after 1 warm
+SORT_REPS = 3  # frames each with sort_bounces on and off, in turns
 
 _T0 = time.perf_counter()
 
@@ -184,10 +196,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds per call by CUDA events, after two warm calls."""
-    fn()
-    fn()
+def time_ms(torch, fn, reps: int, warm: int = 2) -> float:
+    """Mean milliseconds per call by CUDA events, after ``warm`` calls."""
+    for _ in range(warm):
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -208,13 +220,13 @@ def wall_s(torch, fn):
     return time.perf_counter() - t, out
 
 
-def time_turns(torch, fns: dict, reps: int) -> dict:
+def time_turns(torch, fns: dict, reps: int, warm: int = 2) -> dict:
     """Mean ms per call of each of ``fns``, timed in turns there and back
     (a, b, ..., b, a) on the same card, each turn ``time_ms``."""
     names = list(fns)
     ms = {k: 0.0 for k in names}
     for k in names + names[::-1]:
-        ms[k] += time_ms(torch, fns[k], reps) / 2
+        ms[k] += time_ms(torch, fns[k], reps, warm) / 2
     return ms
 
 
@@ -243,17 +255,18 @@ def main(device: str = "cuda") -> int:
     from dod_raytracer_tpu_torch.utils.math import reflect
 
     dev = torch.device(device)
-    walks = {  # kernel -> (its wrapper's module, the wrapper, its plain walk)
-        "packet_traverse": (packet, packet.packet_traverse, traverse_plain),
-        "mega_walk": (mega, mega.mega_traverse, traverse_plain),
-        "forest_walk": (forest, forest.forest_traverse, traverse_forest_plain),
+    walks = {  # warp walk -> (the wrapper, its plain walk, the per-ray kernel it replaced)
+        "packet_traverse": (packet.packet_traverse, traverse_plain, packet.packet_traverse_per_ray),
+        "mega_walk": (mega.mega_traverse, traverse_plain, mega.mega_traverse_per_ray),
+        "forest_walk": (forest.forest_traverse, traverse_forest_plain, forest.forest_traverse_per_ray),
     }
     per_ray = packet.packet_traverse_per_ray
     packet_walk = packet.packet_traverse  # the frame's kernel
     counters = {"packet_traverse": packet, "mega_walk": mega, "forest_walk": forest, "block_loop": binned,
-                "mt_closest": mt, "plucker_closest": plucker,  # kernel -> the module that counts it
-                "packet_traverse_per_ray": SimpleNamespace(launches=packet.per_ray_launches,
-                                                           reset_launches=packet.reset_launches)}
+                "mt_closest": mt, "plucker_closest": plucker}  # kernel -> the module that counts it
+    for name, module in (("packet_traverse", packet), ("mega_walk", mega), ("forest_walk", forest)):
+        counters[f"{name}_per_ray"] = SimpleNamespace(launches=module.per_ray_launches,
+                                                      reset_launches=module.reset_launches)
 
     def reset_counts():
         for module in counters.values():
@@ -288,7 +301,7 @@ def main(device: str = "cuda") -> int:
         finally:
             packet.packet_traverse = packet_walk
 
-    def sort_samples(scene, base, reps=3):
+    def sort_samples(scene, base, reps=SORT_REPS):
         """Frame seconds with sort_bounces on and off, ``reps`` each, timed
         in turns (on, off, off, on, on, off, ...) -> {on: [...], off: [...]}."""
         order = [True, False, False, True] * reps
@@ -330,11 +343,13 @@ def main(device: str = "cuda") -> int:
     builds = _cuda.build_all(SOURCES, force=True)
     for b in builds:
         for line in b["log"].splitlines():
-            if b["name"] == "packet_traverse" or "registers" in line or "spill" in line or "stack frame" in line:
+            if b["name"] in ("packet_traverse", "kd_walk") or "registers" in line or "spill" in line \
+                    or "stack frame" in line:
                 print(f"  ptxas {b['name']}:", line.strip(), flush=True)
     for module in (packet, mega, binned, mt, plucker):
         module._fn()
     packet._fn_per_ray()
+    mega._fn_per_ray()
     log("phase 2 build: " + ", ".join(f"{b['name']}.cu nvcc {b['seconds']:.2f} s -> "
                                       f"{os.path.relpath(b['path'], ROOT)}" for b in builds)
         + f"; {time.perf_counter() - t:.2f} s wall")
@@ -413,26 +428,28 @@ def main(device: str = "cuda") -> int:
         refs["brute"] = (tb, pb, tb < tt[:n_brute], n_brute)
         return refs, raws
 
-    def check_packet(label, kd, out, raws, o, d):
-        """The packet walk's closest hits against each per-ray walk's
-        outputs ``raws`` (name -> (t, prim, found)) under its parity rule
-        (module docstring)."""
+    def check_warp(label, kname, kd, out, raws, o, d):
+        """A warp walk's closest hits against each other walk's outputs
+        ``raws`` (name -> (t, prim, found)) under the packet rule (module
+        docstring); ``bits_equal``: every output bit equal besides."""
         res = {}
         for name, ref in raws.items():
             r = packet.parity(kd, out, ref, o, d, False)
+            holds = packet.parity_holds(r)
             both = out[2] & ref[2]
             r["max_abs_t_err"] = float((out[0] - ref[0])[both].abs().max()) if bool(both.any()) else 0.0
+            r["bits_equal"] = all(torch.equal(a, b) for a, b in zip(out, ref))
             res[name] = r
-            check(packet.parity_holds(r), f"packet_traverse closest parity {label} vs {name}: {r}")
-        log(f"phase parity packet_traverse closest {label}: {json.dumps(res)}")
+            check(holds, f"{kname} closest parity {label} vs {name}: {r}")
+        log(f"phase parity {kname} closest {label}: {json.dumps(res)}")
         return res
 
-    def packet_stats(kd, inputs, depth, any_hit):
-        """The packet walk's measurement build on ``inputs`` -> its counts
-        summed over the warps, and the lane occupancy: wanting lanes over
-        32 x blocks staged."""
+    def packet_stats(kd, inputs, depth, any_hit, walk=None):
+        """A warp walk's measurement build on ``inputs`` (default: the
+        packet walk) -> its counts summed over the warps, and the lane
+        occupancy: wanting lanes over 32 x blocks staged."""
         st = torch.zeros(((inputs[0].shape[0] + 31) // 32, len(packet.STATS)), dtype=torch.int32, device=dev)
-        packet_walk(kd, *inputs, depth, any_hit, stats=st)
+        (walk or packet_walk)(kd, *inputs, depth, any_hit, stats=st)
         tot = dict(zip(packet.STATS, (int(x) for x in st.sum(0, dtype=torch.int64))))
         tot["warps"] = st.shape[0]
         tot["lane_occupancy"] = tot["wanting_lanes"] / (32 * tot["blocks_staged"]) if tot["blocks_staged"] else 0.0
@@ -451,37 +468,66 @@ def main(device: str = "cuda") -> int:
             render_rays(scene, o, d, raw, cfg)
         return launched
 
-    def per_bounce(label, scene, cfg, o, d, raw):
-        """Both walks on every traversal launch of one tile's render, with
-        the bounce sort on and off: ms per launch in turns (per-ray, packet,
-        packet, per-ray; BOUNCE_REPS after 2 warm), the packet walk's
-        counts, and its parity with the per-ray walk on those inputs."""
+    def per_bounce(label, scene, cfg, o, d, raw, other):
+        """The packet walk and warp walk ``other`` (mega_walk or
+        forest_walk), each beside the per-ray walk it replaced, on every
+        traversal launch of one tile's render, with the bounce sort on and
+        off: ms per launch in turns (per-ray, packet, other's per-ray,
+        other, and back; BOUNCE_REPS after 1 warm), both warp walks'
+        counts, and each one's parity with its per-ray walk on those
+        inputs."""
+        owalk, _, oper = walks[other]
         rows = []
         for sort in (True, False):
             bounce = {"closest": 0, "any_hit": 0}
             for mode, inputs, depth in record_tile(scene, dataclasses.replace(cfg, sort_bounces=sort), o, d, raw):
                 any_hit = mode == "any_hit"
-                par = packet.parity(scene.kd, packet_walk(scene.kd, *inputs, depth, any_hit),
-                                    per_ray(scene.kd, *inputs, depth, any_hit), inputs[0], inputs[1], any_hit)
-                check(packet.parity_holds(par), f"{label} per-bounce parity, sort_bounces={sort}, {mode} "
-                                                f"bounce {bounce[mode]}: {par}")
+                par = {}
+                for name, (walk, _, per_ray_walk) in walks.items():
+                    if name in ("packet_traverse", other):
+                        par[name] = packet.parity(scene.kd, walk(scene.kd, *inputs, depth, any_hit),
+                                                  per_ray_walk(scene.kd, *inputs, depth, any_hit), inputs[0],
+                                                  inputs[1], any_hit)
+                        check(packet.parity_holds(par[name]), f"{label} per-bounce parity of {name}, sort_bounces="
+                                                              f"{sort}, {mode} bounce {bounce[mode]}: {par[name]}")
                 ms = time_turns(torch, {"per_ray": lambda: per_ray(scene.kd, *inputs, depth, any_hit),
-                                        "packet": lambda: packet_walk(scene.kd, *inputs, depth, any_hit)},
-                                BOUNCE_REPS)
+                                        "packet": lambda: packet_walk(scene.kd, *inputs, depth, any_hit),
+                                        "other_per_ray": lambda: oper(scene.kd, *inputs, depth, any_hit),
+                                        "other": lambda: owalk(scene.kd, *inputs, depth, any_hit)},
+                                BOUNCE_REPS, warm=1)
                 rows.append(dict(sort_bounces=sort, mode=mode, bounce=bounce[mode], rays=inputs[0].shape[0],
                                  live_rays=int((inputs[2] >= 0).sum()), per_ray_ms=ms["per_ray"],
-                                 packet_ms=ms["packet"], parity=par,
-                                 **packet_stats(scene.kd, inputs, depth, any_hit)))
+                                 packet_ms=ms["packet"], **{f"{other}_per_ray_ms": ms["other_per_ray"],
+                                                            f"{other}_ms": ms["other"]},
+                                 parity=par["packet_traverse"], **{f"{other}_parity": par[other]},
+                                 **packet_stats(scene.kd, inputs, depth, any_hit),
+                                 **{f"{other}_stats": packet_stats(scene.kd, inputs, depth, any_hit, owalk)}))
                 bounce[mode] += 1
         print(json.dumps({"per_bounce": {"scene": label, "rows": rows}}), flush=True)
         for sort in (True, False):
             for mode in ("closest", "any_hit"):
                 sel = [r for r in rows if r["sort_bounces"] == sort and r["mode"] == mode]
-                log(f"per-bounce {label} {mode} sort_bounces={sort}: packet ms "
-                    + ", ".join(f"{r['packet_ms']:.3f}" for r in sel) + "; per-ray ms "
-                    + ", ".join(f"{r['per_ray_ms']:.3f}" for r in sel) + "; lane occupancy "
-                    + ", ".join(f"{r['lane_occupancy']:.3f}" for r in sel))
+                fmt = lambda key: ", ".join(f"{r[key]:.3f}" for r in sel)
+                log(f"per-bounce {label} {mode} sort_bounces={sort}: packet ms {fmt('packet_ms')}; per-ray ms "
+                    f"{fmt('per_ray_ms')}; {other} ms {fmt(other + '_ms')}; its per-ray ms "
+                    f"{fmt(other + '_per_ray_ms')}; lane occupancy {fmt('lane_occupancy')}")
         return rows
+
+    def attach_bounces(entries, rows, other):
+        """Give the packet walk's and ``other``'s entries of a scene their
+        sums over the per-bounce rows, by bounce sort (warp walk ms, its
+        per-ray walk's ms); the packet entries also get the rows."""
+        for e in entries:
+            name, mode = e["name"].split("[")[0], e["name"].split("[")[1].split(",")[0].rstrip("]")
+            if name not in ("packet_traverse", other):
+                continue
+            sel = [r for r in rows if r["mode"] == mode]
+            keys = ("packet_ms", "per_ray_ms") if name == "packet_traverse" else (f"{other}_ms", f"{other}_per_ray_ms")
+            e["per_bounce_sums"] = {f"sort_bounces={sort}": {
+                "warp_ms": sum(r[keys[0]] for r in sel if r["sort_bounces"] == sort),
+                "per_ray_ms": sum(r[keys[1]] for r in sel if r["sort_bounces"] == sort)} for sort in (True, False)}
+            if name == "packet_traverse":
+                e["per_bounce"] = sel
 
     def edge_distance(verts, prim, o, d):
         """Barycentric distance of each ray's crossing of triangle ``prim``
@@ -609,13 +655,11 @@ def main(device: str = "cuda") -> int:
             o = torch.where(active[:, None], hit.point + d_new * cfg.Epsilon, o)
             d = torch.where(active[:, None], d_new, d)
 
-    def kernel_entry(name, mode, kd, inputs, depth, launches, err, nodes_bytes, extra):
-        """Time one kernel at the main path's shapes, beside its plain
-        version and its bound -> one entry of the ``kernels`` line.
-
-        The bound is the larger of two times, both from what these inputs
-        make the kernel do, counted by its measurement-only build (``stats``
-        per ray, ``touched`` marks per block and slot):
+    def work_bound(walk, kd, inputs, depth, any_hit, nodes_bytes):
+        """The least time the card could take for the work that the per-ray
+        walk ``walk`` counts on ``inputs`` in its measurement build
+        (``stats`` per ray, ``touched`` marks per block and slot) -> dict
+        of the bound and its terms.  The larger of two times:
           * bytes over 3.35 TB/s: each ray's o, d, t_max read and t, prim,
             found written once; the node tables and world bounds whole
             (``nodes_bytes``, under 0.1% of the total); block_aabb of the
@@ -625,30 +669,12 @@ def main(device: str = "cuda") -> int:
             (9 floats), and block_orig of the distinct triangles returned;
           * fp32 operations over 67 TFLOP/s: 33 per edge-sign test of a
             non-empty slot (18 products, 15 sums) and 33 per
-            Möller–Trumbore distance.
-        For the packet walk the counts are the per-ray walk's, what these
-        rays need (a packet may visit more), and the per-ray walk is timed
-        beside it in turns.
-        """
-        any_hit = mode == "any_hit"
-        ko, kdir, kt = inputs
-        n = ko.shape[0]
-        _, wrapper, plain = walks[name]
-        stats_walk = wrapper
-        if name == "packet_traverse":
-            stats_walk = per_ray
-            turns = time_turns(torch, {"per_ray": lambda: per_ray(kd, ko, kdir, kt, depth, any_hit),
-                                       "packet": lambda: packet_walk(kd, ko, kdir, kt, depth, any_hit)},
-                               TIMING_REPS)
-            ms = turns["packet"]
-            extra = dict(extra, per_ray_ms=turns["per_ray"], packet_stats=packet_stats(kd, inputs, depth, any_hit))
-        else:
-            ms = time_ms(torch, lambda: wrapper(kd, ko, kdir, kt, depth, any_hit), TIMING_REPS)
-        plain_ms = wall_s(torch, lambda: plain(kd, ko, kdir, kt, depth, any_hit))[0] * 1e3
+            Möller–Trumbore distance."""
+        n = inputs[0].shape[0]
         B, S = kd.block_orig.shape
         stats = torch.zeros((n, 4), dtype=torch.int32, device=dev)
         touched = torch.zeros((B, 2 + S), dtype=torch.int32, device=dev)
-        _, prim, found = stats_walk(kd, ko, kdir, kt, depth, any_hit, stats=stats, touched=touched)
+        _, prim, found = walk(kd, *inputs, depth, any_hit, stats=stats, touched=touched)
         node_steps, blocks, slots, mt_slots = (int(x) for x in stats.sum(0, dtype=torch.int64))
         aabb_blocks = int(touched[:, 0].sum(dtype=torch.int64))
         edge_blocks = touched[:, 1] > 0
@@ -658,24 +684,52 @@ def main(device: str = "cuda") -> int:
         nbytes = (n * (12 + 12 + 4) + n * 12 + nodes_bytes + 24 + aabb_blocks * 24 + g_slots * 18 * 4
                   + tri_slots * 9 * 4 + winners * 4)
         flops = (slots + mt_slots) * 33
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        bound_ms, bound_by = bound(nbytes, flops)
+        return dict(bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, operations=flops, node_steps=node_steps,
+                    blocks_tested=blocks, blocks_edge_tested=int(edge_blocks.sum()), slots_tested=slots,
+                    distances=mt_slots, block_g_slots_read=g_slots, block_tris_slots_read=tri_slots,
+                    block_aabbs_read=aabb_blocks)
+
+    def kernel_entry(name, mode, kd, inputs, depth, launches, err, nodes_bytes, extra):
+        """Time one warp walk at the main path's shapes, in turns with the
+        per-ray walk it replaced, beside its plain version and its bound ->
+        one entry of the ``kernels`` line.
+
+        The bound (``work_bound``) counts what these rays need: the per-ray
+        packet walk's counts, which has the per-block AABB pre-test that
+        all three warp walks have (a warp visits the union of its rays'
+        leaves, so it may do more).  For mega and forest the bound of
+        their own per-ray walks' counts, which edge-test every block of
+        every leaf they reach (no pre-test), is kept beside it as
+        ``unpruned``.
+        """
+        any_hit = mode == "any_hit"
+        ko, kdir, kt = inputs
+        n = ko.shape[0]
+        wrapper, plain, per_ray_walk = walks[name]
+        turns = time_turns(torch, {"per_ray": lambda: per_ray_walk(kd, ko, kdir, kt, depth, any_hit),
+                                   "warp": lambda: wrapper(kd, ko, kdir, kt, depth, any_hit)}, TIMING_REPS)
+        ms = turns["warp"]
+        plain_ms = wall_s(torch, lambda: plain(kd, ko, kdir, kt, depth, any_hit))[0] * 1e3
+        work = work_bound(per_ray, kd, inputs, depth, any_hit, nodes_bytes)
+        if name != "packet_traverse":
+            work["unpruned"] = work_bound(per_ray_walk, kd, inputs, depth, any_hit, nodes_bytes)
+        warp_stats = packet_stats(kd, inputs, depth, any_hit, wrapper)
         source, replaces = KERNELS[name]
         entry = dict(name=f"{name}[{mode}]", route="cuda", source=source, replaces=replaces,
                      launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                     library_ms=None, rays=n, bytes=nbytes, operations=flops, node_steps=node_steps,
-                     blocks_tested=blocks, blocks_edge_tested=int(edge_blocks.sum()),
-                     slots_tested=slots, distances=mt_slots, block_g_slots_read=g_slots,
-                     block_tris_slots_read=tri_slots, **extra)
-        if name == "packet_traverse":
-            log(f"phase times packet_traverse[{mode}]: {n} rays, packet walk {ms:.3f} ms, "
-                f"per-ray walk {extra['per_ray_ms']:.3f} ms, packet counts {json.dumps(extra['packet_stats'])}")
-        log(f"phase times {name}[{mode}]: {n} rays, {ms:.3f} ms/launch (plain {plain_ms:.1f} ms), "
-            f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}: {nbytes} bytes, {flops} operations), "
-            f"{node_steps} node steps, {blocks} blocks tested ({int(edge_blocks.sum())} distinct of {B}), "
-            f"{slots} non-empty slots edge-tested, {mt_slots} distances; read {g_slots} slots of block_g, "
-            f"{tri_slots} of block_tris, {aabb_blocks} block AABBs")
+                     bound_ms=work.pop("bound_ms"), bound_by=work.pop("bound_by"), library_ms=None, rays=n,
+                     per_ray_ms=turns["per_ray"], **work, warp_stats=warp_stats, **extra)
+        unpruned = entry.get("unpruned")
+        log(f"phase times {name}[{mode}]: {n} rays, warp walk {ms:.3f} ms/launch, per-ray walk "
+            f"{turns['per_ray']:.3f} ms (plain {plain_ms:.1f} ms), bound {entry['bound_ms']:.4f} ms "
+            f"({entry['bound_by']}: {entry['bytes']} bytes, {entry['operations']} operations; per-ray packet "
+            f"walk: {entry['node_steps']} node steps, {entry['blocks_tested']} blocks tested "
+            f"({entry['blocks_edge_tested']} distinct of {kd.block_orig.shape[0]}), {entry['slots_tested']} "
+            f"non-empty slots edge-tested, {entry['distances']} distances)"
+            + (f"; unpruned bound {unpruned['bound_ms']:.4f} ms ({unpruned['bound_by']}: "
+               f"{unpruned['slots_tested']} slots edge-tested, {unpruned['distances']} distances)" if unpruned else "")
+            + f"; warp counts {json.dumps(warp_stats)}")
         return entry
 
     def bound(nbytes, flops):
@@ -763,29 +817,32 @@ def main(device: str = "cuda") -> int:
             f"{totals[2]} distances; equal to its plain version on every launch")
         return entry
 
-    # ---- 5. teapot parity: packet, per-ray, mega and binned ----
+    # ---- 5. teapot parity: packet, per-ray, mega (warp and per-ray) and binned ----
     depth = _stack_depth(kd, cfg)
     verts = scene.triangles.verts
     plains = {"plain": traverse_plain}
     o_all, d_all, raw_all, tile, start = best_window(scene, cfg, per_ray, depth)
     o, d, raw = (x[start:start + tile] for x in (o_all, d_all, raw_all))
     log(f"phase 5 parity tile: rays [{start}, {start + tile}) of {o_all.shape[0]}")
-    parity = {"packet_traverse": {}, "packet_traverse_per_ray": {}, "mega_walk": {}, "block_loop": {}}
+    parity = {k: {} for k in ("packet_traverse", "packet_traverse_per_ray", "mega_walk", "mega_walk_per_ray",
+                              "block_loop")}
     timing_inputs = {}
     for k, (qo, qd, qt), (so, sd, st) in bounces(scene, cfg, o, d, raw, (0, LATER_BOUNCE), tile):
         refs, raws = closest_refs(kd, verts, depth, qo, qd, qt, plains, qo.shape[0])
         pr = per_ray(kd, qo, qd, qt, depth, False)
         parity["packet_traverse_per_ray"][f"closest_b{k}"] = check_closest(
             f"bounce {k}", "packet_traverse_per_ray", pr, refs, verts, qo, qd, qt)
-        pk = packet_walk(kd, qo, qd, qt, depth, False)
-        parity["packet_traverse"][f"closest_b{k}"] = check_packet(
-            f"bounce {k}", kd, pk, dict(raws, per_ray=pr), qo, qd)
-        parity["packet_traverse"][f"closest_b{k}"].update(check_closest(
-            f"bounce {k}", "packet_traverse", pk, {"brute": refs["brute"]}, verts, qo, qd, qt))
+        mpr = mega.mega_traverse_per_ray(kd, qo, qd, qt, depth, False)
         refs["per_ray"] = (*pr[:2], pr[2] & (pr[0] < qt), qo.shape[0])
-        parity["mega_walk"][f"closest_b{k}"] = check_closest(
-            f"bounce {k}", "mega_walk", mega.mega_traverse(kd, qo, qd, qt, depth, False), refs, verts,
-            qo, qd, qt)
+        parity["mega_walk_per_ray"][f"closest_b{k}"] = check_closest(
+            f"bounce {k}", "mega_walk_per_ray", mpr, refs, verts, qo, qd, qt)
+        pk = packet_walk(kd, qo, qd, qt, depth, False)
+        for kname, out, others in (("packet_traverse", pk, dict(raws, per_ray=pr)),
+                                   ("mega_walk", mega.mega_traverse(kd, qo, qd, qt, depth, False),
+                                    dict(raws, per_ray=pr, mega_per_ray=mpr, packet_traverse=pk))):
+            parity[kname][f"closest_b{k}"] = check_warp(f"bounce {k}", kname, kd, out, others, qo, qd)
+            parity[kname][f"closest_b{k}"].update(check_closest(
+                f"bounce {k}", kname, out, {"brute": refs["brute"]}, verts, qo, qd, qt))
         parity["block_loop"][f"closest_b{k}"] = check_closest(
             f"bounce {k}", "binned walk", binned.binned_traverse(kd, qo, qd, qt, depth, False), refs, verts,
             qo, qd, qt)
@@ -804,11 +861,10 @@ def main(device: str = "cuda") -> int:
         parity["packet_traverse_per_ray"][f"any_b{k}"] = check_any(
             f"bounce {k}", "packet_traverse_per_ray", pr, arefs, verts, so, sd)
         arefs["per_ray"] = (*pr[1:], so.shape[0])
-        pk = packet_walk(kd, so, sd, st, depth, True)
-        parity["packet_traverse"][f"any_b{k}"] = check_any(f"bounce {k}", "packet_traverse", pk, arefs,
-                                                           verts, so, sd)
-        parity["mega_walk"][f"any_b{k}"] = check_any(
-            f"bounce {k}", "mega_walk", mega.mega_traverse(kd, so, sd, st, depth, True), arefs, verts, so, sd)
+        for kname, walk in (("mega_walk_per_ray", mega.mega_traverse_per_ray), ("packet_traverse", packet_walk),
+                            ("mega_walk", mega.mega_traverse)):
+            parity[kname][f"any_b{k}"] = check_any(f"bounce {k}", kname, walk(kd, so, sd, st, depth, True), arefs,
+                                                   verts, so, sd)
         bk = binned.binned_traverse(kd, so, sd, st, depth, True)
         parity["block_loop"][f"any_b{k}"] = check_any(f"bounce {k}", "binned walk", bk, arefs, verts, so, sd)
         check_any_t_prim(f"bounce {k}", bk, {"plain": aplain})
@@ -826,22 +882,26 @@ def main(device: str = "cuda") -> int:
                 name, mode, kd, timing_inputs[mode], depth, launches, plain_err(par, mode, plains),
                 nodes_bytes, dict(scene="teapot", parity={"bounce0": par[f"{key}_b0"],
                                              f"bounce{LATER_BOUNCE}": par[f"{key}_b{LATER_BOUNCE}"]})))
-    rows = per_bounce("teapot", scene, cfg, o, d, raw)
-    for e in kernels[:2]:
-        e["per_bounce"] = [r for r in rows if e["name"] == f"packet_traverse[{r['mode']}]"]
+    attach_bounces(kernels, per_bounce("teapot", scene, cfg, o, d, raw, "mega_walk"), "mega_walk")
     log("phase 6 teapot kernel times")
 
     # ---- 7. the teapot frame through the mega kernel ----
     mcfg = Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48, ray_tile=0,
                        traversal_backend="mega")
+    mega_sort = _sort_bounces(scene, mcfg, dev)
+    wall_s(torch, lambda: render_image(scene, mcfg, device=dev))
     mega_s, mega_img, mega_counts = frame(scene, mcfg, "teapot mega frame", "mega_walk")
     mega_off = u8_off(quantize_u8, mega_img, img_pr)
     check(mega_off < U8_TOLERANCE, f"mega teapot frame: {mega_off:.4%} of u8 channels off by > 1")
+    mega_sorts = sort_samples(scene, mcfg)
     for e in kernels:
         if e["name"].startswith("mega_walk"):
             e["launches"] = mega_counts[e["name"].split("[")[1][:-1]]
-    log(f"phase 7 mega frame: {mega_s:.3f} s, launches {mega_counts}, vs per-ray frame: "
-        f"{mega_off:.6%} of u8 channels off by > 1, max abs diff {float((mega_img - img_pr).abs().max()):.3g}")
+            e["frame_s"], e["frame_sorts"] = mega_s, mega_sorts
+    log(f"phase 7 mega frame (sort_bounces={mega_sort} by default): {mega_s:.3f} s "
+        f"({mega_s / frame_s:.3f} x the packet frame's {frame_s:.3f} s), launches {mega_counts}, vs per-ray "
+        f"frame: {mega_off:.6%} of u8 channels off by > 1, max abs diff {float((mega_img - img_pr).abs().max()):.3g}; "
+        f"seconds with sort_bounces on and off, in turns: {json.dumps(mega_sorts)}")
     del mega_img
 
     # ---- 8. the teapot frame through the binned walk (block-loop kernel) ----
@@ -1008,12 +1068,17 @@ def main(device: str = "cuda") -> int:
     # ---- 12. the flagship frame through the forest kernel ----
     ffcfg = Config(Width=1920, Height=1080, use_kdtree=True, ray_tile=0, MaxPrims=192, leaf_chunk_lanes=48,
                    traversal_backend="forest")
+    forest_sort = _sort_bounces(dscene, ffcfg, dev)
+    wall_s(torch, lambda: render_image(dscene, ffcfg, device=dev))
     forest_s, forest_img, forest_counts = frame(dscene, ffcfg, "dragon forest frame", "forest_walk")
     forest_off = u8_off(quantize_u8, forest_img, flag_img_pr)
     check(forest_off < U8_TOLERANCE, f"forest dragon frame: {forest_off:.4%} of u8 channels off by > 1")
-    log(f"phase 12 forest frame (full 1920x1080, not cut): {forest_s:.3f} s, launches {forest_counts}, "
+    forest_sorts = sort_samples(dscene, ffcfg)
+    log(f"phase 12 forest frame (full 1920x1080, not cut; sort_bounces={forest_sort} by default): {forest_s:.3f} s "
+        f"({forest_s / flag_s:.3f} x the packet flagship frame's {flag_s:.3f} s), launches {forest_counts}, "
         f"vs the per-ray flagship frame: {forest_off:.6%} of u8 channels off by > 1, "
-        f"max abs diff {float((forest_img - flag_img_pr).abs().max()):.3g}")
+        f"max abs diff {float((forest_img - flag_img_pr).abs().max()):.3g}; seconds with sort_bounces on and off, "
+        f"in turns: {json.dumps(forest_sorts)}")
     del forest_img
 
     # ---- 13. the flagship frame through "mega", which resolves to the binned walk ----
@@ -1038,7 +1103,8 @@ def main(device: str = "cuda") -> int:
     w = slice(wstart, wstart + DRAGON_PARITY_RAYS)
     log(f"phase 14 parity window: rays [{wstart}, {wstart + DRAGON_PARITY_RAYS}) of {o_all.shape[0]}, "
         f"in the {dtile}-ray tile at {wstart // dtile * dtile}")
-    dpar = {"packet_traverse": {}, "packet_traverse_per_ray": {}, "forest_walk": {}, "block_loop": {}}
+    dpar = {k: {} for k in ("packet_traverse", "packet_traverse_per_ray", "forest_walk", "forest_walk_per_ray",
+                            "block_loop")}
     dsoa = mt.swizzle_tris(dverts)
 
     def mt_brute(verts, o, d):
@@ -1058,16 +1124,18 @@ def main(device: str = "cuda") -> int:
         pr = per_ray(dkd, qo, qd, qt, ddepth, False)
         dpar["packet_traverse_per_ray"][f"closest_b{k}"] = check_closest(
             f"bounce {k}", "packet_traverse_per_ray", pr, refs, dverts, qo, qd, qt)
-        pk = packet_walk(dkd, qo, qd, qt, ddepth, False)
-        dpar["packet_traverse"][f"closest_b{k}"] = check_packet(
-            f"bounce {k}, dragon", dkd, pk, dict(raws, per_ray=pr), qo, qd)
-        dpar["packet_traverse"][f"closest_b{k}"].update(check_closest(
-            f"bounce {k}", "packet_traverse", pk, {"brute": refs["brute"]}, dverts, qo, qd, qt))
+        fpr = forest.forest_traverse_per_ray(dkd, qo, qd, qt, ddepth, False)
         refs["per_ray"] = (*pr[:2], pr[2] & (pr[0] < qt), qo.shape[0])
-        del raws
-        dpar["forest_walk"][f"closest_b{k}"] = check_closest(
-            f"bounce {k}", "forest_walk", forest.forest_traverse(dkd, qo, qd, qt, ddepth, False), refs,
-            dverts, qo, qd, qt)
+        dpar["forest_walk_per_ray"][f"closest_b{k}"] = check_closest(
+            f"bounce {k}", "forest_walk_per_ray", fpr, refs, dverts, qo, qd, qt)
+        pk = packet_walk(dkd, qo, qd, qt, ddepth, False)
+        for kname, out, others in (("packet_traverse", pk, dict(raws, per_ray=pr)),
+                                   ("forest_walk", forest.forest_traverse(dkd, qo, qd, qt, ddepth, False),
+                                    dict(raws, per_ray=pr, forest_per_ray=fpr, packet_traverse=pk))):
+            dpar[kname][f"closest_b{k}"] = check_warp(f"bounce {k}, dragon", kname, dkd, out, others, qo, qd)
+            dpar[kname][f"closest_b{k}"].update(check_closest(
+                f"bounce {k}", kname, out, {"brute": refs["brute"]}, dverts, qo, qd, qt))
+        del raws, fpr
         dpar["block_loop"][f"closest_b{k}"] = check_closest(
             f"bounce {k}", "binned walk", binned.binned_traverse(dkd, qo, qd, qt, ddepth, False), refs,
             dverts, qo, qd, qt)
@@ -1077,6 +1145,7 @@ def main(device: str = "cuda") -> int:
                                       device=dev) for li in range(L)])
         outs = {"packet_traverse_per_ray": per_ray(dkd, so, sd, st, ddepth, True),
                 "packet_traverse": packet_walk(dkd, so, sd, st, ddepth, True),
+                "forest_walk_per_ray": forest.forest_traverse_per_ray(dkd, so, sd, st, ddepth, True),
                 "forest_walk": forest.forest_traverse(dkd, so, sd, st, ddepth, True),
                 "block_loop": binned.binned_traverse(dkd, so, sd, st, ddepth, True)}
         aplain = {name: walk(dkd, so, sd, st, ddepth, True) for name, walk in dplains.items()}
@@ -1084,8 +1153,8 @@ def main(device: str = "cuda") -> int:
         for kname in ("packet_traverse_per_ray", "packet_traverse"):
             dpar[kname][f"any_b{k}"] = check_any(f"bounce {k}", kname, outs[kname], arefs, dverts, so, sd)
         arefs["per_ray"] = (*outs["packet_traverse_per_ray"][1:], so.shape[0])
-        dpar["forest_walk"][f"any_b{k}"] = check_any(f"bounce {k}", "forest_walk", outs["forest_walk"], arefs,
-                                                     dverts, so, sd)
+        for kname in ("forest_walk_per_ray", "forest_walk"):
+            dpar[kname][f"any_b{k}"] = check_any(f"bounce {k}", kname, outs[kname], arefs, dverts, so, sd)
         dpar["block_loop"][f"any_b{k}"] = check_any(f"bounce {k}", "binned walk", outs["block_loop"], arefs,
                                                     dverts, so, sd)
         check_any_t_prim(f"bounce {k}, dragon", outs["block_loop"], aplain)
@@ -1104,6 +1173,7 @@ def main(device: str = "cuda") -> int:
     del o_all, d_all, raw_all
     dinputs = {"closest": td[1], "any_hit": td[2]}
     T, cap = dkd.tre_tbl.shape[:2]
+    dkernels = []
     for name, nodes_bytes, counts_of in (
             ("packet_traverse", dM * 20, flag_counts),
             ("forest_walk", dkd.top_tbl.shape[0] * 16 + T * cap * 24, forest_counts)):
@@ -1116,12 +1186,12 @@ def main(device: str = "cuda") -> int:
                                  plain_err(par, mode, dplains), nodes_bytes, extra)
             if name == "packet_traverse":
                 entry["name"] = f"packet_traverse[{mode},dragon]"
-            kernels.append(entry)
-    rows = per_bounce("dragon", dscene, fcfg, *tile_rays)
-    for e in kernels:
-        if e["name"].startswith("packet_traverse[") and e["name"].endswith(",dragon]"):
-            e["per_bounce"] = [r for r in rows if e["name"] == f"packet_traverse[{r['mode']},dragon]"]
-    del tile_rays, rows
+            else:
+                entry["frame_s"], entry["frame_sorts"] = forest_s, forest_sorts
+            dkernels.append(entry)
+    attach_bounces(dkernels, per_bounce("dragon", dscene, fcfg, *tile_rays, "forest_walk"), "forest_walk")
+    kernels += dkernels
+    del tile_rays
     for mode in ("closest", "any_hit"):  # the whole binned walk of the tile
         key = "closest" if mode == "closest" else "any"
         walk_s, _, launched = binned_walk(dkd, dinputs[mode], ddepth, mode == "any_hit")
@@ -1150,7 +1220,7 @@ def main(device: str = "cuda") -> int:
             dev_ms[e.key] = dev_ms.get(e.key, 0.0) + us / 1e3
     busy = sum(dev_ms.values())
     if busy > 0:
-        ours = sum(v for k, v in dev_ms.items() if "packet_traverse" in k)
+        ours = sum(v for k, v in dev_ms.items() if "PacketNodes" in k)  # kd_warp.cuh warp_walk_kernel<PacketNodes>
         top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
         print(json.dumps({"profile": {
             "frame": "dragon flagship, auto", "frame_wall_ms": prof_wall_ms, "device_busy_ms": busy,

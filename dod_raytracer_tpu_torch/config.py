@@ -64,13 +64,14 @@ class Config:
     # don't divide (an exact permutation of the wavefront)
     block_ray_order: bool = True
     # re-sort the wavefront every bounce by render._sort_keys (an exact
-    # permutation: the frame's bits do not change) so that the packet
-    # walk's warps hold neighbouring rays.  None = auto, the JAX package's
-    # rule: on where the descend is the packet walk on CUDA tensors (not
-    # for the mega, forest or binned backends, nor brute force), off on
-    # the CPU.  The CUDA default is the faster side of the flagship frame
-    # timed sorted and unsorted in turns on the H100 (chip_smoke.py phase
-    # 11, PERF.md §6).
+    # permutation: the frame's bits do not change) so that the warp
+    # walks' warps hold neighbouring rays.  None = auto, the port's own
+    # rule (render._sort_bounces): on where the descend is the packet or
+    # the forest walk on CUDA tensors (not for the mega or binned
+    # backends, nor brute force), off on the CPU.  Each CUDA default is
+    # the faster side of that backend's frame timed sorted and unsorted in
+    # turns on the H100 (chip_smoke.py phases 7, 11 and 12, PERF.md §6).
+    # The JAX package sorts on its accelerator for every backend.
     sort_bounces: Optional[bool] = None
     remat_bounces: bool = False  # not ported (gradients are a later slice)
     bounce_skip: bool = False  # not ported

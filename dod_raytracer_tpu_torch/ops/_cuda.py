@@ -3,11 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled at first use with plain ``nvcc`` for
 ``sm_90a`` into its own shared library with a C interface
 (``_build/lib<name>_<hash>.so``; ``_build/`` is listed in ``.gitignore``).
-The hash covers the source, the ``csrc/`` headers it includes and the
-flags, so an edit to any of them gives a new library.  The libraries are
-bound with ``ctypes``: pointers and the stream go in as ``c_void_p``, each
-C function returns ``cudaGetLastError()`` and its wrapper raises if that
-is not 0.  Nothing here runs at import time: the CPU has no ``nvcc``.
+The hash covers the source, the ``csrc/`` headers it includes (directly
+or through another header) and the flags, so an edit to any of them gives
+a new library.  The libraries are bound with ``ctypes``: pointers and the
+stream go in as ``c_void_p``, each C function returns
+``cudaGetLastError()`` and its wrapper raises if that is not 0.  Nothing here runs at import time: the CPU has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -42,11 +42,17 @@ def _nvcc() -> str:
 
 
 def _inputs(name: str) -> list:
-    """The source and the csrc/ headers it includes, in a fixed order."""
-    paths = [os.path.join(CSRC, f"{name}.cu")]
-    with open(paths[0]) as f:
-        paths += sorted(os.path.join(CSRC, h) for h in re.findall(r'#include\s+"([^"]+)"', f.read()))
-    return paths
+    """The source and the csrc/ headers it includes, directly or through
+    another header, in a fixed order."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    headers, todo = set(), [src]
+    while todo:
+        with open(todo.pop()) as f:
+            for h in re.findall(r'#include\s+"([^"]+)"', f.read()):
+                if h not in headers:
+                    headers.add(h)
+                    todo.append(os.path.join(CSRC, h))
+    return [src] + sorted(os.path.join(CSRC, h) for h in headers)
 
 
 def library_path(name: str) -> str:

@@ -6,7 +6,8 @@ The kernels are built at first use with plain ``nvcc`` and bound with
 
 ``packet_traverse`` is the frame's kernel: a warp-coherent packet walk (one
 warp of 32 consecutive rays shares one node cursor and stack; wanted leaf
-blocks are staged in shared memory by ``cp.async``).  It launches for CUDA
+blocks are staged in shared memory by ``cp.async``; ``csrc/kd_warp.cuh``,
+the template the mega and forest walks share).  It launches for CUDA
 tensors and takes the plain walk (``traverse.traverse_plain``) only for
 CPU tensors.  Every launch adds one to ``launches[mode]``; nothing else
 does.
@@ -18,10 +19,11 @@ the kernel's least-time bound, and ``chip_smoke.py`` times it beside the
 packet walk.  The frame never calls it.
 
 Parity (the JAX package's rule for its packet kernel, tests/test_packet.py):
-against the per-ray walks the packet walk gives equal hit masks and
-any-hit bits and bit-equal closest-hit t; a prim may differ only where
-two triangles' Möller–Trumbore t are bit-equal (the packet visits the
-union of its rays' leaves in its own order).
+against the per-ray walks every warp walk (packet, mega, forest) gives
+equal hit masks and any-hit bits and bit-equal closest-hit t; a prim may
+differ only where two triangles' Möller–Trumbore t are bit-equal (the
+packet visits the union of its rays' leaves in its own order).  ``parity``
+counts it.
 """
 
 from __future__ import annotations
@@ -79,18 +81,45 @@ def _tables(kd, o, d, t_max, stack_depth, stats=None, touched=None):
     return _pack_nodes(kd), torch.cat([kd.bounds_min, kd.bounds_max])
 
 
+def check_warp(kd, o, stack_depth: int, stats) -> None:
+    """What the warp walks (``csrc/kd_warp.cuh``: the packet, mega and
+    forest kernels) need beyond ``_cuda.check_rays``, for CUDA tensors:
+    ``block_aabb`` (6, B); ``stats`` None or (ceil(N / 32), 5) int32; a
+    tree whose recorded depth (``kd.max_depth``, set by every build of the
+    port) is no more than ``stack_depth``, since the warp's shared stack
+    may not drop an entry that some lane still needs; slots a multiple of
+    4 and spad of 128 (4-slot loads from 128-slot sections); WARPS staged
+    blocks within the shared memory of a CTA; block_g 16-byte aligned.
+    Raises ``ValueError`` (``TypeError`` for a dtype) otherwise."""
+    dev, n = o.device, o.shape[0]
+    B, S = kd.block_orig.shape
+    _cuda.check("block_aabb", kd.block_aabb, torch.float32, (6, B), dev)
+    if stats is not None:
+        _cuda.check("stats", stats, torch.int32, ((n + 31) // 32, len(STATS)), dev)
+    if not kd.max_depth or kd.max_depth > stack_depth:
+        raise ValueError(f"the warp walks need a stack as deep as the tree: depth {kd.max_depth or 'unknown'}, "
+                         f"stack_depth {stack_depth}")
+    spad = kd.block_g.shape[2] // 5
+    if S % 4 or spad % 128:
+        raise ValueError(f"the warp walks read 4 slots at a time from 128-slot sections: slots {S}, spad {spad}")
+    if smem_bytes(spad) > SMEM_LIMIT:
+        raise ValueError(f"{WARPS} staged blocks take {smem_bytes(spad)} bytes at spad {spad}, "
+                         f"over the {SMEM_LIMIT} bytes of shared memory a CTA may use")
+    if kd.block_g.data_ptr() % 16:
+        raise ValueError("block_g is not 16-byte aligned")
+
+
 def packet_traverse(kd, o, d, t_max, stack_depth: int, any_hit: bool, stats=None):
     """kd traversal of N rays -> (t (N,) f32, prim (N,) i32, -1 where no
     hit, found (N,) bool), by the packet walk.
 
     CUDA tensors need the kd tables ``block_orig``, ``block_tris``,
-    ``block_g`` and ``block_aabb``, and a tree whose recorded depth
-    (``kd.max_depth``, set by every build of the port) is no more than
-    ``stack_depth``; otherwise ``ValueError``.  The warp's shared stack
-    may not drop an entry that some lane still needs.  CPU tensors take
-    the plain walk, which, like the JAX kernels, drops its deepest entry
-    instead; the render path's ``ops.traverse._stack_depth`` always
-    covers the tree unless ``cfg.stack_depth`` is set below its depth.
+    ``block_g`` and ``block_aabb``, and what ``check_warp`` lists (a tree
+    no deeper than ``stack_depth`` among them); otherwise ``ValueError``.
+    CPU tensors take the plain walk, which, like the JAX kernels, drops its
+    deepest entry instead; the render path's ``ops.traverse._stack_depth``
+    always covers the tree unless ``cfg.stack_depth`` is set below its
+    depth.
 
     ``stats`` is for measurement only (the frame never passes it): an
     optional (ceil(N / 32), 5) int32 CUDA tensor into which a separate
@@ -103,20 +132,9 @@ def packet_traverse(kd, o, d, t_max, stack_depth: int, any_hit: bool, stats=None
     dev = o.device
     n = o.shape[0]
     nodes, bounds = _tables(kd, o, d, t_max, stack_depth)
-    if stats is not None:
-        _cuda.check("stats", stats, torch.int32, ((n + 31) // 32, len(STATS)), dev)
-    if not kd.max_depth or kd.max_depth > stack_depth:
-        raise ValueError(f"the packet walk needs a stack as deep as the tree: depth {kd.max_depth or 'unknown'}, "
-                         f"stack_depth {stack_depth}")
+    check_warp(kd, o, stack_depth, stats)
     B, S = kd.block_orig.shape
     spad = kd.block_g.shape[2] // 5
-    if S % 4 or spad % 128:
-        raise ValueError(f"the packet walk reads 4 slots at a time from 128-slot sections: slots {S}, spad {spad}")
-    if smem_bytes(spad) > SMEM_LIMIT:
-        raise ValueError(f"{WARPS} staged blocks take {smem_bytes(spad)} bytes at spad {spad}, "
-                         f"over the {SMEM_LIMIT} bytes of shared memory a CTA may use")
-    if kd.block_g.data_ptr() % 16:
-        raise ValueError("block_g is not 16-byte aligned")
     t_out, prim, found = _cuda.outputs(n, dev)
     if n == 0:
         return t_out, prim, found.bool()

@@ -13,7 +13,7 @@ and rays terminate at their first miss.  ``render_image`` renders the
 frame in ray tiles, in 8x128 screen-block order when the frame divides
 into such blocks (an exact permutation).  ``cfg.sort_bounces`` re-sorts
 the wavefront every bounce by ``_sort_keys`` (another exact permutation)
-so that the packet walk's warps hold neighbouring rays.  The JAX
+so that the warp walks' warps hold neighbouring rays.  The JAX
 package's bounce rematerialization and dead-round skipping are not
 ported.
 """
@@ -93,11 +93,19 @@ def _bounce_perm(scene, o, d, active, cfg):
     return torch.sort(key, stable=True).indices
 
 
+# the backends whose frames the bounce sort made faster on the H100
+# (chip_smoke.py phases 11 and 12, PERF.md §6); the mega frame (phase 7)
+# was slower sorted, the binned frames were not timed both ways
+_SORTED_BACKENDS = ("packet", "forest")
+
+
 def _sort_bounces(scene, cfg, device) -> bool:
-    """``cfg.sort_bounces``; None = the JAX package's rule, on where the
-    descend is the packet walk: CUDA tensors, a kd tree that the mesh
-    does not bypass for brute force, and the packet backend (config.py
-    says which measurement set this default).  Off on the CPU."""
+    """``cfg.sort_bounces``; None = the port's own rule: on for CUDA
+    tensors where a kd tree (not bypassed for brute force) is walked by
+    a backend of ``_SORTED_BACKENDS``, off on the CPU and everywhere
+    else.  The JAX package's rule differs: it sorts on its accelerator
+    for every backend (``dod_raytracer_tpu/render.py:87-91``).  Both
+    sorts are exact permutations, so no rule changes an image."""
     sort = getattr(cfg, "sort_bounces", None)
     if sort is not None:
         return bool(sort)
@@ -105,7 +113,7 @@ def _sort_bounces(scene, cfg, device) -> bool:
         return False
     from .ops.traverse import _backend
 
-    return _backend(scene.kd, cfg) == "packet"
+    return _backend(scene.kd, cfg) in _SORTED_BACKENDS
 
 
 def render_rays(scene, o, d, pixel_dirs, cfg: Config) -> torch.Tensor:

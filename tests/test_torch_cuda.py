@@ -16,7 +16,11 @@ the union of its warp's leaves in its own order, so it is held to the
 JAX package's packet rule (tests/test_packet.py), tightened: hit masks
 and any-hit bits equal, closest-hit t bit-equal, and a prim may differ
 only where both triangles' Möller–Trumbore t are bit-equal
-(``ops.packet.parity``).
+(``ops.packet.parity``).  The mega and forest kernels are the same warp
+walk over other node layouts (``csrc/kd_warp.cuh``) and are held to the
+same rule, against the plain walks, their per-ray kernels
+(``*_per_ray``, bit for bit with the plain walks) and the packet walk on
+the same tree.
 """
 
 import dataclasses
@@ -34,19 +38,25 @@ from dod_raytracer_tpu_torch.shading import _shadow_perm, shadow_rays
 
 N = 4096
 PACKET_WALKS = ["packet", "per_ray"]  # the frame's kernel, the per-ray walk it replaced
+WARP_WALKS = ["packet", "mega", "forest"]  # one warp-walk template, three node layouts
 
 
 def _packet_walk(name):
-    """(wrapper, its launch counts)."""
-    if name == "packet":
-        return packet.packet_traverse, packet.launches
-    return packet.packet_traverse_per_ray, packet.per_ray_launches
+    """(wrapper, its launch counts) of a walk: 'packet', 'mega', 'forest'
+    (the warp walks) or 'per_ray', 'mega_per_ray', 'forest_per_ray' (the
+    per-ray kernels they replaced)."""
+    return {"packet": (packet.packet_traverse, packet.launches),
+            "per_ray": (packet.packet_traverse_per_ray, packet.per_ray_launches),
+            "mega": (mega.mega_traverse, mega.launches),
+            "mega_per_ray": (mega.mega_traverse_per_ray, mega.per_ray_launches),
+            "forest": (forest.forest_traverse, forest.launches),
+            "forest_per_ray": (forest.forest_traverse_per_ray, forest.per_ray_launches)}[name]
 
 
 def assert_walk_parity(name, kd, got, ref, o, d, any_hit):
-    """The per-ray walk: every output bit for bit (any-hit: the hit bits);
-    the packet walk: its parity rule.  Returns the prim ties."""
-    if name == "per_ray" or any_hit:
+    """A per-ray walk: every output bit for bit (any-hit: the hit bits);
+    a warp walk: the packet rule.  Returns the prim ties."""
+    if name.endswith("per_ray") or any_hit:
         assert torch.equal(got[2], ref[2])
         if not any_hit:
             assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
@@ -305,24 +315,28 @@ def forest_kd():
     return tv, kd, ttrav._stack_depth(kd, cfg)
 
 
-def _walks(teapot_kd, forest_kd):
-    """(name, wrapper, its launch counts, kd, depth, its plain walk)."""
+def _walks(teapot_kd, forest_kd, per_ray=False):
+    """(name, wrapper, its launch counts, kd, depth, its plain walk) of the
+    mega and forest warp walks, or of their per-ray kernels."""
     _, kd, depth = teapot_kd
     _, fkd, fdepth = forest_kd
-    return [("mega", mega.mega_traverse, mega.launches, kd, depth, ttrav.traverse_plain),
-            ("forest", forest.forest_traverse, forest.launches, fkd, fdepth, ttrav.traverse_forest_plain)]
+    suffix = "_per_ray" if per_ray else ""
+    return [(f"mega{suffix}", *_packet_walk(f"mega{suffix}"), kd, depth, ttrav.traverse_plain),
+            (f"forest{suffix}", *_packet_walk(f"forest{suffix}"), fkd, fdepth, ttrav.traverse_forest_plain)]
 
 
 @pytest.mark.parametrize("case", ["unclipped", "clipped", "inside"])
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_walk_kernels_match_plain_walks(teapot_kd, forest_kd, case, any_hit):
-    """The mega and forest kernels vs their plain walks and vs the per-ray
-    packet kernel (the same leaf test and visit order), and the packet
-    walk vs them under its parity rule."""
+    """The mega and forest per-ray kernels vs their plain walks and vs the
+    per-ray packet kernel (the same leaf test and visit order), bit for
+    bit; the mega and forest warp walks vs all of them, and vs the packet
+    walk on the same tree, under the packet rule."""
     o, d, t_max = make_rays(case, seed=8)
     mode = "any_hit" if any_hit else "closest"
-    for name, walk, counts, kd, depth, plain in _walks(teapot_kd, forest_kd):
-        before = counts[mode]
+    for (name, walk, counts, kd, depth, plain), (wname, wwalk, wcounts, _, _, _) in zip(
+            _walks(teapot_kd, forest_kd, per_ray=True), _walks(teapot_kd, forest_kd)):
+        before, wbefore = counts[mode], wcounts[mode]
         tk, pk, fk = walk(kd, o, d, t_max, depth, any_hit)
         assert counts[mode] == before + 1, name
         tp, pp, fp = plain(kd, o, d, t_max, depth, any_hit)
@@ -333,56 +347,178 @@ def test_walk_kernels_match_plain_walks(teapot_kd, forest_kd, case, any_hit):
             assert int(hit.sum()) > N // 8
             assert torch.equal(tk[hit], tp[hit]) and torch.equal(pk[hit], pp[hit]), name
             assert torch.equal(tk, tq) and torch.equal(pk, pq), name
+        got = wwalk(kd, o, d, t_max, depth, any_hit)
+        assert wcounts[mode] == wbefore + 1, wname
+        for ref in ((tp, pp, fp), (tk, pk, fk), packet.packet_traverse(kd, o, d, t_max, depth, any_hit)):
+            assert_walk_parity(wname, kd, got, ref, o, d, any_hit)
         assert_walk_parity("packet", kd, packet.packet_traverse(kd, o, d, t_max, depth, any_hit),
                            (tk, pk, fk), o, d, any_hit)
 
 
+def _hard_case_tree(name, teapot_kd, forest_kd, dragon_kd, tree):
+    """The tree a hard-case test of warp walk ``name`` runs on: 'small' is
+    the teapot (mega) or its forest of 16-row treelets (forest), 'dragon'
+    the 40k dragon (its treelet tables for the forest)."""
+    if tree == "dragon":
+        assert dragon_kd[1].tre_tbl is not None
+        return dragon_kd
+    return forest_kd if name == "forest" else teapot_kd
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", ["incoherent", "split_planes", "dead_tail"])
+@pytest.mark.parametrize("tree", ["small", "dragon"])
+@pytest.mark.parametrize("name", ["mega", "forest"])
+def test_warp_walks_hard_cases(teapot_kd, forest_kd, dragon_kd, name, tree, case, any_hit):
+    """The mega and forest warp walks against their plain walks, their
+    per-ray kernels and the packet walk on the same tree, on ray counts
+    that are not a multiple of 32 and below 32; the per-ray kernels bit for
+    bit against the plain walks.  On the forests, warps pop back across
+    treelets."""
+    tv, kd, depth = _hard_case_tree(name, teapot_kd, forest_kd, dragon_kd, tree)
+    plain = ttrav.traverse_forest_plain if name == "forest" else ttrav.traverse_plain
+    walk, per_ray_walk = _packet_walk(name)[0], _packet_walk(f"{name}_per_ray")[0]
+    o, d, t_max = edge_rays(tv, kd, case, seed=24)
+    hits = 0
+    for n in (N - 7, 5):
+        ro, rd, rt = (x[:n].contiguous() for x in (o, d, t_max))
+        ref = plain(kd, ro, rd, rt, depth, any_hit)
+        per_ray = per_ray_walk(kd, ro, rd, rt, depth, any_hit)
+        assert_walk_parity(f"{name}_per_ray", kd, per_ray, ref, ro, rd, any_hit)
+        hits += int(ref[2].sum())
+        got = walk(kd, ro, rd, rt, depth, any_hit)
+        for other in (ref, per_ray, packet.packet_traverse(kd, ro, rd, rt, depth, any_hit)):
+            assert_walk_parity(name, kd, got, other, ro, rd, any_hit)
+        if case == "dead_tail":
+            dead = rt < 0
+            assert not got[2][dead].any() and torch.equal(got[0][dead], rt[dead])
+    assert hits > 0
+
+
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("name", ["mega", "forest"])
+def test_warp_walks_shadow_batches(teapot_kd, forest_kd, dragon_kd, name, sort):
+    """The shadow batches of ``test_packet_walk_shadow_batches`` through
+    the mega and forest warp walks, against their per-ray kernels, the
+    plain walks and the packet walk."""
+    import types
+
+    small = forest_kd if name == "forest" else teapot_kd
+    plain = ttrav.traverse_forest_plain if name == "forest" else ttrav.traverse_plain
+    walk, per_ray_walk = _packet_walk(name)[0], _packet_walk(f"{name}_per_ray")[0]
+    for tv, kd, depth in (small, dragon_kd):
+        o, d, t_max = edge_rays(tv, kd, "dead_tail", seed=22, n=2048)
+        t, _, found = per_ray_walk(kd, o, d, t_max, depth, False)
+        points = (o + d * torch.where(found, t, 0.0)[:, None])[found]
+        rng = np.random.default_rng(23)
+        lo, hi = tv.reshape(-1, 3).min(0), tv.reshape(-1, 3).max(0)
+        lights = torch.from_numpy((lo + (rng.random((3, 3)) * 3 - 1) * (hi - lo)).astype(np.float32)).cuda()
+        relevant = torch.from_numpy(rng.random((points.shape[0], 3)) > 0.2).cuda()
+        so, sd, st = shadow_rays(types.SimpleNamespace(lights=types.SimpleNamespace(position=lights)),
+                                 points, relevant=relevant)
+        if sort:
+            perm = _shadow_perm(types.SimpleNamespace(kd=kd), so, sd, st, 3)
+            so, sd, st = so[perm], sd[perm], st[perm]
+        so, sd, st = so.contiguous(), sd.contiguous(), st.contiguous()
+        got = walk(kd, so, sd, st, depth, True)
+        refs = [per_ray_walk(kd, so, sd, st, depth, True), plain(kd, so, sd, st, depth, True),
+                packet.packet_traverse(kd, so, sd, st, depth, True)]
+        assert bool(refs[1][2].any()) and not bool(refs[1][2].all())
+        for ref in refs:
+            assert torch.equal(got[2], ref[2])
+
+
 def test_dispatch_raises_on_missing_tables(teapot_kd):
-    """A CUDA tree without block_g (or block_aabb, for the packet kernel)
+    """A CUDA tree without block_g (or block_aabb, for the warp walks)
     reaches its kernel's wrapper through the dispatch, and that raises: no
     backend gives way to a torch walk on the card."""
     _, kd, _ = teapot_kd
     o, d, t_max = make_rays("unclipped", seed=6)
-    before = [dict(m.launches) for m in (packet, mega, binned)]
+    before = [dict(m.launches) for m in (packet, mega, forest, binned)]
     for name in ("auto", "packet", "mega", "forest", "binned"):
         cfg = T.Config(MaxPrims=96, leaf_chunk_lanes=48, traversal_backend=name)
-        for table in ("block_g",) + (("block_aabb",) if name in ("auto", "packet") else ()):
+        for table in ("block_g",) + (("block_aabb",) if name != "binned" else ()):
             with pytest.raises(ValueError, match=table):
                 ttrav.kd_closest(dataclasses.replace(kd, **{table: None}), None, o, d, t_max, cfg)
-    assert [dict(m.launches) for m in (packet, mega, binned)] == before
+    assert [dict(m.launches) for m in (packet, mega, forest, binned)] == before
 
 
 def test_walk_wrappers_reject_missing_tables(teapot_kd, forest_kd):
     o, d, t_max = make_rays("unclipped", seed=6)
-    before = dict(mega.launches), dict(forest.launches)
-    for name, walk, _, kd, depth, _ in _walks(teapot_kd, forest_kd):
-        tables = ["block_g", "block_tris", "block_orig"] + (["tre_tbl", "top_tbl"] if name == "forest" else [])
-        for table in tables:
-            with pytest.raises(ValueError, match=table):
-                walk(dataclasses.replace(kd, **{table: None}), o, d, t_max, depth, False)
-    assert (dict(mega.launches), dict(forest.launches)) == before
+    modules = (mega, forest)
+    before = [(dict(m.launches), dict(m.per_ray_launches)) for m in modules]
+    for per_ray in (False, True):
+        for name, walk, _, kd, depth, _ in _walks(teapot_kd, forest_kd, per_ray):
+            tables = ["block_g", "block_tris", "block_orig"] + (["tre_tbl", "top_tbl"] if "forest" in name else [])
+            tables += [] if per_ray else ["block_aabb"]  # the per-ray walks have no AABB pre-test
+            for table in tables:
+                with pytest.raises(ValueError, match=table):
+                    walk(dataclasses.replace(kd, **{table: None}), o, d, t_max, depth, False)
+    assert [(dict(m.launches), dict(m.per_ray_launches)) for m in modules] == before
+
+
+@pytest.mark.parametrize("name", WARP_WALKS)
+def test_warp_walks_refuse_what_they_cannot_hold(teapot_kd, forest_kd, name):
+    """Each warp walk refuses, before any launch, a stack shallower than
+    the tree, a tree of unknown depth, staged blocks over the 227 KB of
+    shared memory a CTA may use (spad 512: 8 x 18 x 512 floats), and the
+    per-ray stats shape."""
+    _, kd, depth = forest_kd if name == "forest" else teapot_kd
+    walk, counts = _packet_walk(name)
+    o, d, t_max = make_rays("unclipped", seed=6)
+    before = dict(counts)
+    with pytest.raises(ValueError, match="stack"):
+        walk(kd, o, d, t_max, kd.max_depth - 1, False)
+    with pytest.raises(ValueError, match="stack"):
+        walk(dataclasses.replace(kd, max_depth=0), o, d, t_max, depth, False)
+    B = kd.block_g.shape[0]
+    wide = torch.zeros((B, 16, 5 * 512), dtype=torch.float32, device="cuda")
+    assert packet.smem_bytes(512) > packet.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        walk(dataclasses.replace(kd, block_g=wide), o, d, t_max, depth, False)
+    with pytest.raises(ValueError, match="stats"):
+        walk(kd, o, d, t_max, depth, False, stats=torch.zeros((N, 4), dtype=torch.int32, device="cuda"))
+    assert counts == before
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_walk_stats_build_gives_the_same_result(teapot_kd, forest_kd, any_hit):
+    """The mega and forest kernels' measurement builds give their render
+    builds' outputs: the per-ray walks' counts agree with their marks, the
+    warp walks' counts add up."""
     o, d, t_max = make_rays("clipped", seed=9)
-    for name, walk, _, kd, depth, _ in _walks(teapot_kd, forest_kd):
+    for name, walk, _, kd, depth, _ in _walks(teapot_kd, forest_kd, per_ray=True):
         ref = walk(kd, o, d, t_max, depth, any_hit)
         stats, touched = _stats_outputs(kd)
         got = walk(kd, o, d, t_max, depth, any_hit, stats=stats, touched=touched)
         for a, b in zip(got, ref):
             assert torch.equal(a, b), name
         _check_stats(kd, stats, touched, aabb=False)
+    for name, walk, _, kd, depth, _ in _walks(teapot_kd, forest_kd):
+        ref = walk(kd, o, d, t_max, depth, any_hit)
+        wstats = torch.zeros(((N + 31) // 32, len(packet.STATS)), dtype=torch.int32, device="cuda")
+        got = walk(kd, o, d, t_max, depth, any_hit, stats=wstats)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), name
+        steps, staged, wanting, _, distances = wstats.long().sum(0).tolist()
+        assert steps > 0 and staged > 0 and 0 < wanting <= 32 * staged and distances > 0, name
+        # the same walk over another layout of the same tree stages the same blocks
+        pstats = torch.zeros_like(wstats)
+        packet.packet_traverse(kd, o, d, t_max, depth, any_hit, stats=pstats)
+        assert torch.equal(wstats, pstats), name
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_kernels_match_plain_walks_on_the_cpu(teapot_kd, forest_kd, any_hit):
-    """Every kernel on the card gives the bits of its plain walk on the
-    CPU, on the same tables and rays."""
+    """Every kernel on the card against its plain walk on the CPU, on the
+    same tables and rays: the per-ray kernels bit for bit, the warp walks
+    under the packet rule."""
     o, d, t_max = make_rays("clipped", seed=10)
     cpu = lambda x: x.cpu()
     walks = [(name, _packet_walk(name)[0], *teapot_kd[1:], ttrav.traverse_plain) for name in PACKET_WALKS]
-    walks += [(name, walk, kd, depth, plain) for name, walk, _, kd, depth, plain in _walks(teapot_kd, forest_kd)]
+    for per_ray in (False, True):
+        walks += [(name, walk, kd, depth, plain)
+                  for name, walk, _, kd, depth, plain in _walks(teapot_kd, forest_kd, per_ray)]
     for name, walk, kd, depth, plain in walks:
         kd_cpu = dataclasses.replace(kd, **{f.name: cpu(getattr(kd, f.name)) for f in dataclasses.fields(kd)
                                             if isinstance(getattr(kd, f.name), torch.Tensor)})
@@ -390,7 +526,7 @@ def test_kernels_match_plain_walks_on_the_cpu(teapot_kd, forest_kd, any_hit):
         ref = plain(kd_cpu, cpu(o), cpu(d), cpu(t_max), depth, any_hit)
         assert bool(ref[2].any()), name
         assert torch.equal(got[2].cpu(), ref[2]), name
-        if name == "packet":
+        if name in WARP_WALKS:
             assert_walk_parity(name, kd, got, [x.cuda() for x in ref], o, d, any_hit)
         elif not any_hit:
             for a, b in zip(got[:2], ref[:2]):

@@ -192,17 +192,23 @@ def test_sort_shadow_automatic_rule(teapot_pair, small_dragon):
 
 
 def test_sort_bounces_default_by_device(teapot_pair, small_dragon):
-    """None: on where the descend is the packet walk on CUDA tensors (the
-    JAX package's rule), off on the CPU and for every other descend."""
+    """None: on where the descend is the packet or the forest walk on CUDA
+    tensors (the port's rule, from the H100 frames timed both ways), off
+    on the CPU and for every other descend."""
     _, tscene = teapot_pair
+    dscene = small_dragon[1]
     auto = T.Config()
     assert not trender._sort_bounces(tscene, auto, "cpu")
     assert trender._sort_bounces(tscene, auto, "cuda")
     assert trender._sort_bounces(tscene, T.Config(traversal_backend="packet"), "cuda")
-    assert trender._sort_bounces(small_dragon[1], auto, "cuda")
-    for backend in ("mega", "forest", "binned", "xla"):
+    assert trender._sort_bounces(dscene, auto, "cuda")
+    assert dscene.kd.tre_tbl is not None  # "forest" takes the forest walk there
+    assert trender._sort_bounces(dscene, T.Config(traversal_backend="forest"), "cuda")
+    assert not trender._sort_bounces(dscene, T.Config(traversal_backend="forest"), "cpu")
+    for backend in ("mega", "forest", "binned", "xla"):  # "forest" on the teapot: the mega walk
         assert not trender._sort_bounces(tscene, T.Config(traversal_backend=backend), "cuda")
-        assert not trender._sort_bounces(small_dragon[1], T.Config(traversal_backend=backend), "cuda")
+    for backend in ("mega", "binned", "xla"):  # "mega" on the dragon: the binned walk
+        assert not trender._sort_bounces(dscene, T.Config(traversal_backend=backend), "cuda")
     assert not trender._sort_bounces(tscene, T.Config(brute_threshold=tscene.n_triangles), "cuda")
     assert not trender._sort_bounces(types.SimpleNamespace(kd=None, n_triangles=0), auto, "cuda")
     assert trender._sort_bounces(tscene, T.Config(sort_bounces=True), "cpu")

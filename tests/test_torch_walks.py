@@ -150,6 +150,24 @@ def test_wrappers_on_cpu_count_no_launch(pair):
     assert (dict(mega.launches), dict(forest.launches)) == before
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_per_ray_wrappers_on_cpu_count_no_launch(pair, any_hit):
+    """``mega_traverse_per_ray`` and ``forest_traverse_per_ray`` on CPU
+    tensors take the plain walks: their bits, and no launch counted."""
+    name, tv, _, tkd, kw = pair
+    o, d, t_max = (torch.from_numpy(x) for x in make_rays(tv, "clipped", seed=10))
+    depth = ttrav._stack_depth(tkd, T.Config(**kw))
+    counts = lambda: [dict(m.launches) for m in (mega, forest)] + [dict(m.per_ray_launches) for m in (mega, forest)]
+    before = counts()
+    ref = ttrav.traverse_plain(tkd, o, d, t_max, depth, any_hit)
+    assert bool(ref[2].any())
+    walks = [mega.mega_traverse_per_ray] + ([forest.forest_traverse_per_ray] if tkd.tre_tbl is not None else [])
+    for walk in walks:
+        for a, b in zip(walk(tkd, o, d, t_max, depth, any_hit), ref):
+            assert torch.equal(a, b)
+    assert counts() == before
+
+
 def test_backend_resolves_as_jax(pair, monkeypatch):
     """Every name resolves as the JAX package resolves it on its
     accelerator, with and without the treelet tables; a name JAX does not
