@@ -10,8 +10,9 @@ Phases, each printed with its elapsed seconds as it ends:
      per-ray walk it replaced), kd_walk.cu (the mega and forest warp walks
      and the per-ray walks they replaced; all three warp walks are one
      template, kd_warp.cuh; both sources' whole -Xptxas -v is printed),
-     block_loop.cu (the binned walk's leaf stage), mt_closest.cu and
-     plucker_closest.cu (brute force);
+     block_loop.cu (the binned walk's leaf stage, and the per-ray
+     kernel it replaced), binned_descend.cu (the binned walk's descend round),
+     mt_closest.cu and plucker_closest.cu (brute force);
   3. the reference scene from config.ini (1920x1080): 16 spheres, 6 walls,
      the cylinder, the teapot (6,320 triangles), 9 lights, 10 bounces, with
      the kd-tree shape MaxPrims=96, leaf_chunk_lanes=48;
@@ -42,16 +43,23 @@ Phases, each printed with its elapsed seconds as it ends:
      one warm and one timed, against the per-ray frame of phase 4: u8
      channels off by > 1; then 3 frames each with sort_bounces on and off,
      in turns;
-  8. the teapot frame with traversal_backend='binned' (the block-loop
-     kernel), not cut, timed once, against the per-ray frame of phase 4:
-     no u8 channel may be off by > 1; then the block-loop kernel's time per
-     launch, its plain version's and its bound over the launches of the
-     binned walks of phase 5's bounce-0 queries (``block_loop_entry``);
+  8. the teapot frame with traversal_backend='binned' (the round kernel
+     and the block-loop kernel, each launched once a round), not cut,
+     timed once, against the per-ray frame of phase 4: no u8 channel may
+     be off by > 1; then, on phase 5's bounce-0 queries, the binned walk
+     with its rounds on the card against host-driven rounds
+     (``tile_walks``), the block-loop kernel's time per launch in turns
+     with the per-ray kernel it replaced, its plain version's, its bound
+     (also with the whole batch's key reads and t, prim writes) and the
+     distinct keys per warp and per CTA over
+     the walk's launches (``block_loop_entry``), and the round kernel's
+     time per launch, plain time and bound (``descend_entry``);
   9. brute force: the Möller–Trumbore and Plücker kernels once each on the
      2,073,600 primary rays of the 1080p teapot frame against its 6,320
      triangles, held to their plain versions and the Plücker kernel to
-     brute force, their times, plain times and bounds (``brute_entry``),
-     and an fp32 torch.matmul of the Plücker product beside them; then the
+     brute force, their times, plain times and bounds, also at the 480x270
+     frame's launch shape (16,384 rays), and an fp32 torch.matmul of the
+     Plücker product beside them; then the
      teapot frame at 480x270 with brute_threshold=6320 through
      triangle_backend 'jnp', 'pallas' (the Möller–Trumbore kernel) and
      'plucker' (the Plücker kernel), and through the packet walk and the
@@ -70,7 +78,10 @@ Phases, each printed with its elapsed seconds as it ends:
      then 3 frames each with sort_bounces on and off, in turns;
  13. the same frame with traversal_backend='mega', which resolves to the
      binned walk on this tree of 2,645 nodes (the resolution is printed),
-     the full frame, timed once, against the per-ray frame of phase 11;
+     the full frame, timed once, against the per-ray frame of phase 11: no
+     u8 channel may be off by > 1; if it took under BINNED_SORT_LIMIT
+     seconds, both binned frames 3 times each with sort_bounces on and off,
+     in turns;
  14. parity of the packet walk and its per-ray walk, the forest warp walk
      and its per-ray walk, and the binned walk against the plain forest
      walk, the plain walk and brute force on 65,536 rays of the dragon tile
@@ -86,9 +97,9 @@ Phases, each printed with its elapsed seconds as it ends:
      the flagship's shapes (262,144 closest-hit and 2,359,296 any-hit rays
      of one tile), each in turns with the per-ray walk it replaced, and
      all four walks per bounce with the bounce sort on and off (as phase
-     6); the whole binned walk of that tile and
-     the block-loop kernel's entries over its launches; then the
-     ``kernels`` JSON line;
+     6); the tile's binned walk, device rounds against host-driven rounds,
+     and the block-loop and round kernels' entries over its launches (as
+     phase 8); then the ``kernels`` JSON line;
  16. one profiled flagship frame: device time by kernel, the traversal
      kernels' share of it, and the device's idle share, as one ``profile``
      line;
@@ -148,12 +159,15 @@ KERNELS = {  # kernel -> (source in the repo, the TPU kernel it replaces)
                     "dod_raytracer_tpu/ops/pallas/forest_kernel.py:343"),
     "block_loop": ("dod_raytracer_tpu_torch/csrc/block_loop.cu",
                    "dod_raytracer_tpu/ops/pallas/block_loop_kernel.py:143"),
+    # the binned walk's descend round: XLA's while_loop in the JAX package, no Pallas kernel
+    "binned_descend": ("dod_raytracer_tpu_torch/csrc/binned_descend.cu",
+                       "dod_raytracer_tpu/ops/traverse.py:350"),
     "mt_closest": ("dod_raytracer_tpu_torch/csrc/mt_closest.cu",
                    "dod_raytracer_tpu/ops/pallas/mt_kernel.py:118"),
     "plucker_closest": ("dod_raytracer_tpu_torch/csrc/plucker_closest.cu",
                         "dod_raytracer_tpu/ops/pallas/plucker_kernel.py:117"),
 }
-SOURCES = ["packet_traverse", "kd_walk", "block_loop", "mt_closest", "plucker_closest"]
+SOURCES = ["packet_traverse", "kd_walk", "block_loop", "binned_descend", "mt_closest", "plucker_closest"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 LATER_BOUNCE = 3
@@ -170,6 +184,7 @@ RAY_CHUNK = 32768  # rays per torch brute-force call (bounds its (rays, 2048, 3)
 PLUCKER_T_RTOL = 1e-4  # the Plücker kernel's t against brute force (tests/test_pallas.py)
 BRUTE_PARITY_RAYS = 65536  # of the 1080p primary rays, held to the plain versions and brute force
 BRUTE_FRAME = dict(Width=480, Height=270, ray_tile=16384, brute_threshold=6320)  # phase 9
+BINNED_SORT_LIMIT = 20.0  # seconds: a dragon binned frame under this is timed with sort_bounces on and off
 MT_OPS = 46  # fp32 operations per ray-triangle pair, mt_closest.cu (27 mul, 18 add, 1 rcp)
 PLUCKER_OPS = 46  # plucker_closest.cu (25 mul, 20 add, 1 div)
 U8_TOLERANCE = 0.01  # golden tolerance: fraction of u8 channels off by > 1
@@ -246,7 +261,7 @@ def main(device: str = "cuda") -> int:
     from dod_raytracer_tpu_torch import Config, default_scene, quantize_u8, render_image
     from dod_raytracer_tpu_torch.intersect import closest_families, closest_hit, occluded_families
     from dod_raytracer_tpu_torch.ops import _cuda, binned, forest, mega, mt, packet, plucker
-    from dod_raytracer_tpu_torch.ops.traverse import (_PLAIN_CHUNK, _backend, _stack_depth, leaf_plain,
+    from dod_raytracer_tpu_torch.ops.traverse import (_PLAIN_CHUNK, _backend, _stack_depth, _walk, leaf_plain,
                                                       traverse_forest_plain, traverse_plain)
     from dod_raytracer_tpu_torch.ops.triangle import (brute_force_closest, mt_single,
                                                       occluded_triangles_brute)
@@ -264,9 +279,13 @@ def main(device: str = "cuda") -> int:
     packet_walk = packet.packet_traverse  # the frame's kernel
     counters = {"packet_traverse": packet, "mega_walk": mega, "forest_walk": forest, "block_loop": binned,
                 "mt_closest": mt, "plucker_closest": plucker}  # kernel -> the module that counts it
-    for name, module in (("packet_traverse", packet), ("mega_walk", mega), ("forest_walk", forest)):
+    for name, module in (("packet_traverse", packet), ("mega_walk", mega), ("forest_walk", forest),
+                         ("block_loop", binned)):
         counters[f"{name}_per_ray"] = SimpleNamespace(launches=module.per_ray_launches,
                                                       reset_launches=module.reset_launches)
+    counters["binned_descend"] = SimpleNamespace(launches=binned.descend_launches,
+                                                 reset_launches=binned.reset_launches)
+    BINNED = ("block_loop", "binned_descend")  # the binned walk's two kernels
 
     def reset_counts():
         for module in counters.values():
@@ -278,18 +297,23 @@ def main(device: str = "cuda") -> int:
     def frame(scene, cfg, path: str, only, modes=("closest", "any_hit")):
         """One timed frame of the main path ``path``: every count set to 0
         just before it and read just after; only kernel ``only`` (None: no
-        kernel) may have launched, in each of ``modes``."""
+        kernel; a tuple: those kernels) may have launched, and each of them
+        in each of ``modes``.  -> (seconds, image, the launches of ``only``:
+        by mode, or by kernel and mode for a tuple)."""
+        kernels_of = () if only is None else ((only,) if isinstance(only, str) else tuple(only))
         reset_counts()
         seconds, img = wall_s(torch, lambda: render_image(scene, cfg, device=dev))
         counts = read_counts()
-        check(only is None or all(counts[only][m] > 0 for m in modes),
+        check(all(counts[k][m] > 0 for k in kernels_of for m in modes),
               f"{path}: {only} not launched in modes {modes}: {counts}")
-        check(all(sum(c.values()) == 0 for k, c in counts.items() if k != only),
+        check(all(sum(c.values()) == 0 for k, c in counts.items() if k not in kernels_of),
               f"{path}: another kernel launched: {counts}")
         check(tuple(img.shape) == (cfg.Height, cfg.Width, 3), f"{path}: frame shape {tuple(img.shape)}")
         check(bool(torch.isfinite(img).all()), f"{path}: frame has non-finite values")
         check(float(img.mean()) > 0.01, f"{path}: frame is black (mean {float(img.mean())})")
-        return seconds, img, counts[only] if only else {}
+        if isinstance(only, str):
+            return seconds, img, counts[only]
+        return seconds, img, {k: counts[k] for k in kernels_of}
 
     @contextlib.contextmanager
     def frame_walk(walk):
@@ -350,6 +374,8 @@ def main(device: str = "cuda") -> int:
         module._fn()
     packet._fn_per_ray()
     mega._fn_per_ray()
+    binned._fn_per_ray()
+    binned._fn_descend()
     log("phase 2 build: " + ", ".join(f"{b['name']}.cu nvcc {b['seconds']:.2f} s -> "
                                       f"{os.path.relpath(b['path'], ROOT)}" for b in builds)
         + f"; {time.perf_counter() - t:.2f} s wall")
@@ -740,48 +766,131 @@ def main(device: str = "cuda") -> int:
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
     def binned_walk(kd, inputs, depth, any_hit):
-        """One binned walk -> (its seconds, its result, the (o, d, keys) of
-        each block-loop launch it made, in order)."""
+        """One binned walk (device rounds) -> (its result, the (o, d, keys)
+        of each block-loop launch it made, in order, keys copied: the walk
+        reuses its key buffer).  The launches are seen where the walk makes
+        them, ``binned._launch``."""
         launched = []
         launch = binned._launch
 
-        def record(kd_, o_, d_, keys, mode):
-            launched.append((o_, d_, keys))
-            return launch(kd_, o_, d_, keys, mode)
+        def record(kd_, o_, d_, keys, mode, *rest):
+            launched.append((o_, d_, keys.clone()))
+            return launch(kd_, o_, d_, keys, mode, *rest)
 
         binned._launch = record
         try:
-            seconds, out = wall_s(torch, lambda: binned.binned_traverse(kd, *inputs, depth, any_hit))
+            out = binned.binned_traverse(kd, *inputs, depth, any_hit)
         finally:
             binned._launch = launch
-        return seconds, out, launched
+        return out, launched
 
-    def block_loop_entry(label, mode, kd, launched, walk_s, launches, extra):
+    def host_walk(kd, inputs, depth, any_hit, rounds=None):
+        """The binned walk with host-driven rounds: traverse._walk's torch descend,
+        driven from the host, with the block-loop kernel as its leaf stage
+        on the rays that have a block; ``rounds`` counts its leaf calls."""
+        mode = "any_hit" if any_hit else "closest"
+
+        def leaf(kd_, o_, d_, keys):
+            if rounds is not None:
+                rounds.append(1)
+            return binned._launch(kd_, o_, d_, keys, mode)
+
+        return _walk(kd, *inputs, depth, any_hit, False, leaf)
+
+    def host_reads(fn):
+        """(the host syncs ``fn`` makes, by the source line that made them,
+        its result): torch's sync debug mode warns once per synchronizing
+        call (a .item(), a nonzero)."""
+        import warnings
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        sites = {}
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                site = f"{os.path.basename(w.filename)}:{w.lineno}"
+                sites[site] = sites.get(site, 0) + 1
+        return sites, out
+
+    def tile_walks(label, kd, inputs, depth, any_hit):
+        """One tile's binned walk with device rounds and with host-driven
+        rounds, timed in turns (device, host, host, device); both give the
+        same bits.  -> {seconds of each, rounds, host syncs}."""
+        mode = "any_hit" if any_hit else "closest"
+        fns = {"device": lambda: binned.binned_traverse(kd, *inputs, depth, any_hit),
+               "host": lambda: host_walk(kd, inputs, depth, any_hit)}
+        secs = {"device": [], "host": []}
+        for which in ("device", "host", "host", "device"):
+            secs[which].append(wall_s(torch, fns[which])[0])
+        reset_counts()
+        dev_sites, out_d = host_reads(fns["device"])
+        dev_syncs = sum(dev_sites.values())
+        dev_rounds = binned.launches[mode]
+        check(binned.descend_launches[mode] == dev_rounds, f"binned walk {label}: {binned.descend_launches} "
+                                                           f"descend launches, {binned.launches} block-loop launches")
+        host_rounds = []
+        host_sites, out_h = host_reads(lambda: host_walk(kd, inputs, depth, any_hit, host_rounds))
+        host_syncs = sum(host_sites.values())
+        check(all(torch.equal(a, b) for a, b in zip(out_d, out_h)),
+              f"binned walk {label} {mode}: device rounds and host-driven rounds differ")
+        res = dict(device_s=secs["device"], host_s=secs["host"], device_rounds=dev_rounds,
+                   device_host_syncs=dev_syncs, device_sync_sites=dev_sites, host_rounds=len(host_rounds),
+                   host_host_syncs=host_syncs)
+        log(f"phase times binned walk {label} {mode}, {inputs[0].shape[0]} rays, in turns: device rounds "
+            f"{json.dumps(secs['device'])} s ({dev_rounds} rounds, {dev_syncs} host syncs: {json.dumps(dev_sites)}), "
+            f"host-driven rounds "
+            f"{json.dumps(secs['host'])} s ({len(host_rounds)} rounds, {host_syncs} host syncs); the same bits")
+        return res
+
+    def block_loop_entry(label, mode, kd, launched, tile_walk, launches, extra):
         """The block-loop kernel over the launches of one binned walk ->
         one entry of the ``kernels`` line: the mean time per launch (the
-        walk's launches replayed, CUDA events, 20 times after 2 warm), the
-        plain version's (``leaf_plain`` on the same inputs, in chunks of
-        _PLAIN_CHUNK rays), and the mean bound per launch.  Each launch's
-        outputs must equal the plain version's bit for bit.
+        walk's launches replayed, CUDA events, 20 times after 2 warm), in
+        turns with the per-ray kernel it replaced; the plain version's time (``leaf_plain`` on the rays with a key in [0, B), in
+        chunks of _PLAIN_CHUNK rays); the mean bound per launch; the
+        distinct keys per warp and per CTA.  Each launch's outputs must
+        equal the plain version's and the per-ray kernel's bit for bit, and
+        be (inf, 2**30) where the key is outside [0, B).
 
-        A launch's bound is the larger of its bytes over 3.35 TB/s (each
-        ray's o, d, key read and t, prim written once; rows 0-5 of
-        block_g's edge sections for the non-empty slots of the distinct
-        blocks it names, 18 floats; block_tris of the slots whose distance
-        was computed, 9 floats; block_orig of the distinct triangles
-        returned) and its fp32 operations over 67 TFLOP/s (33 per edge-sign
-        test of a non-empty slot, 33 per distance), both counted by the
-        kernel's measurement-only build."""
+        A launch's bound is the larger of its bytes over 3.35 TB/s (the
+        key read, t and prim written, and o, d read once for each ray with
+        a key in [0, B): the rays that have work; rows 0-5 of block_g's edge sections for the
+        non-empty slots of the distinct blocks it names, 18 floats;
+        block_tris of the slots whose distance was computed, 9 floats;
+        block_orig of the distinct triangles returned) and its fp32
+        operations over 67 TFLOP/s (33 per edge-sign test of a non-empty
+        slot, 33 per distance), both counted by the kernel's
+        measurement-only build.  ``bound_ms_whole_batch`` adds the key read
+        and the t, prim writes of the launch's rays with no key, which the
+        whole-batch launch makes and a compacted one would not."""
         count = len(launched)
-        ms = time_ms(torch, lambda: [binned._launch(kd, *x, "closest") for x in launched], 20) / count
+        replay = lambda fn: (lambda: [fn(kd, *x) for x in launched])
+        turns = time_turns(torch, {
+            "staged": replay(lambda kd_, o_, d_, k_: binned._launch(kd_, o_, d_, k_, "closest")),
+            "per_ray": replay(binned.block_loop_per_ray)}, TIMING_REPS)
+        ms = {k: v / count for k, v in turns.items()}
         B, S = kd.block_orig.shape
-        plain_s, err, rays, bounds, totals = 0.0, 0.0, 0, [], [0, 0, 0, 0]
+        plain_s, err, rays, keyed, bounds, whole, totals = 0.0, 0.0, 0, 0, [], [], [0, 0, 0, 0]
+        key_counts = torch.zeros((len(binned.KEY_COUNTS),), dtype=torch.int32, device=dev)
         for lo, ld, lk in launched:
             n = lo.shape[0]
             rays += n
             tk, pk = binned.block_loop_intersect(kd, lo, ld, lk)
-            for s0 in range(0, n, _PLAIN_CHUNK):
-                part = slice(s0, s0 + _PLAIN_CHUNK)
+            tr, pr = binned.block_loop_per_ray(kd, lo, ld, lk)
+            check(torch.equal(tk, tr) and torch.equal(pk, pr), f"block_loop {label}: differs from the per-ray kernel")
+            valid = (lk >= 0) & (lk < B)
+            check(not bool(torch.isfinite(tk[~valid]).any()) and bool((pk[~valid] == 2**30).all()),
+                  f"block_loop {label}: a ray without a key in [0, B) has a hit")
+            idx = torch.nonzero(valid)[:, 0]
+            keyed += idx.numel()
+            for s0 in range(0, idx.numel(), _PLAIN_CHUNK):
+                part = idx[s0:s0 + _PLAIN_CHUNK]
                 sec, (tp, pp) = wall_s(torch, lambda: leaf_plain(kd, lo[part], ld[part], lk[part]))
                 plain_s += sec
                 hit = torch.isfinite(tp)
@@ -792,29 +901,92 @@ def main(device: str = "cuda") -> int:
                     err = max(err, float((tk[part] - tp)[hit].abs().max()))
             stats = torch.zeros((n, 2), dtype=torch.int32, device=dev)
             touched = torch.zeros((B, 2 + S), dtype=torch.int32, device=dev)
-            binned.block_loop_intersect(kd, lo, ld, lk, stats=stats, touched=touched)
+            binned.block_loop_intersect(kd, lo, ld, lk, stats=stats, touched=touched, key_counts=key_counts)
             slots, distances = (int(x) for x in stats.sum(0, dtype=torch.int64))
             g_slots = int((kd.block_orig[touched[:, 1] > 0] >= 0).sum())
             tri_slots = int(touched[:, 2:].sum(dtype=torch.int64))
             winners = int(torch.unique(pk[torch.isfinite(tk)]).numel())
-            nbytes = n * (12 + 12 + 4) + n * 8 + g_slots * 18 * 4 + tri_slots * 9 * 4 + winners * 4
+            nbytes = idx.numel() * (4 + 8 + 24) + g_slots * 18 * 4 + tri_slots * 9 * 4 + winners * 4
             bounds.append(bound(nbytes, (slots + distances) * 33))
+            whole.append(bound(nbytes + (n - idx.numel()) * (4 + 8), (slots + distances) * 33)[0])
             for i, v in enumerate((nbytes, slots, distances, g_slots)):
                 totals[i] += v
+        kc = dict(zip(binned.KEY_COUNTS, key_counts.tolist()))
+        kc["keys_per_warp"] = kc["warp_keys"] / max(kc["warps"], 1)
+        kc["keys_per_cta"] = kc["cta_keys"] / max(kc["ctas"], 1)
         by_bytes = sum(1 for _, by in bounds if by == "bytes")
         source, replaces = KERNELS["block_loop"]
         entry = dict(name=f"block_loop[{mode}{label}]", route="cuda", source=source, replaces=replaces,
-                     launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3 / count,
-                     bound_ms=sum(b for b, _ in bounds) / count,
+                     launches=launches, max_abs_err=err, ms=ms["staged"],
+                     plain_ms=plain_s * 1e3 / count, bound_ms=sum(b for b, _ in bounds) / count,
                      bound_by="bytes" if by_bytes * 2 > count else "operations", library_ms=None,
-                     walk_launches=count, walk_s=walk_s, rays_per_launch=rays / count,
+                     bound_ms_whole_batch=sum(whole) / count, per_ray_ms=ms["per_ray"], walk_launches=count,
+                     tile_walk=tile_walk, rays_per_launch=rays / count, keyed_rays_per_launch=keyed / count,
                      bytes=totals[0], operations=(totals[1] + totals[2]) * 33, slots_tested=totals[1],
-                     distances=totals[2], block_g_slots_read=totals[3], **extra)
-        log(f"phase times block_loop[{mode}{label}]: a {walk_s:.3f} s walk of {count} launches, "
-            f"{rays / count:.0f} rays each on average; {ms:.4f} ms/launch (plain {entry['plain_ms']:.2f} ms), "
-            f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}: {totals[0]} bytes, "
-            f"{entry['operations']} operations in all), {totals[1]} non-empty slots edge-tested, "
-            f"{totals[2]} distances; equal to its plain version on every launch")
+                     distances=totals[2], block_g_slots_read=totals[3], key_counts=kc, **extra)
+        log(f"phase times block_loop[{mode}{label}]: {count} launches of a walk, {rays / count:.0f} rays each "
+            f"({keyed / count:.0f} with a key) on average; in turns {ms['staged']:.4f} ms/launch, per-ray kernel "
+            f"{ms['per_ray']:.4f} ms (plain {entry['plain_ms']:.2f} ms), "
+            f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}: {totals[0]} bytes, {entry['operations']} "
+            f"operations in all; {by_bytes} of {count} launches bound by bytes; with the whole batch's key reads "
+            f"and t, prim writes {entry['bound_ms_whole_batch']:.5f} ms), {totals[1]} non-empty slots edge-tested, "
+            f"{totals[2]} distances; distinct keys "
+            f"{json.dumps(kc)}; equal to its plain version and the per-ray kernel on every launch")
+        return entry
+
+    def descend_entry(label, mode, kd, inputs, depth, launches, extra):
+        """The round kernel over one tile's binned walk -> one entry of the
+        ``kernels`` line: CUDA events around each of its launches in the
+        walk, the mean; the plain version's mean per round (the same walk
+        with ``descend_plain`` as its descend, on the card, host clock, the
+        same bits); and the mean bound per launch, bytes over 3.35 TB/s:
+        each ray's active flag read and key written, and per ray active at
+        the round's start its rays, interval, stack depth, cursor, best
+        hit, clip and last leaf result read (68 bytes) and its state
+        written (36 bytes), and the node table read."""
+        any_hit = mode == "any_hit"
+        n = inputs[0].shape[0]
+        events, actives = [], []
+        descend = binned.descend
+
+        def timed(*args):
+            actives.append(args[6].active.sum())
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            descend(*args)
+            e1.record()
+            events.append((e0, e1))
+
+        plain_s = []
+
+        def plain(*args):
+            t0 = time.perf_counter()
+            binned.descend_plain(*args)
+            torch.cuda.synchronize()
+            plain_s.append(time.perf_counter() - t0)
+
+        outs = {}
+        for name, fn in (("kernel", timed), ("plain", plain)):
+            binned.descend = fn
+            try:
+                outs[name] = binned.binned_traverse(kd, *inputs, depth, any_hit)
+            finally:
+                binned.descend = descend
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(outs["kernel"], outs["plain"])),
+              f"binned_descend {label} {mode}: the walk differs with the plain round")
+        ms = sum(a.elapsed_time(b) for a, b in events) / len(events)
+        act = [int(a) for a in actives]
+        nodes_bytes = kd.node_flag.shape[0] * 20
+        bounds = [(n * 8 + a * (68 + 36) + nodes_bytes) / HBM_BYTES_PER_S * 1e3 for a in act]
+        source, replaces = KERNELS["binned_descend"]
+        entry = dict(name=f"binned_descend[{mode}{label}]", route="cuda", source=source, replaces=replaces,
+                     launches=launches, max_abs_err=0.0, ms=ms, plain_ms=sum(plain_s) * 1e3 / len(plain_s),
+                     bound_ms=sum(bounds) / len(bounds), bound_by="bytes", library_ms=None, rays=n,
+                     walk_launches=len(events), active_at_round_start=act, **extra)
+        log(f"phase times binned_descend[{mode}{label}]: {len(events)} launches on {n} rays, {ms:.4f} ms/launch "
+            f"(plain {entry['plain_ms']:.2f} ms a round), bound {entry['bound_ms']:.5f} ms (bytes), active rays at "
+            f"the rounds' starts {act[:4]}...{act[-2:]}; the walk with the plain round gives the same bits")
         return entry
 
     # ---- 5. teapot parity: packet, per-ray, mega (warp and per-ray) and binned ----
@@ -907,7 +1079,7 @@ def main(device: str = "cuda") -> int:
     # ---- 8. the teapot frame through the binned walk (block-loop kernel) ----
     bcfg = Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48, ray_tile=0,
                        traversal_backend="binned")
-    binned_s, binned_img, binned_counts = frame(scene, bcfg, "teapot binned frame", "block_loop")
+    binned_s, binned_img, binned_counts = frame(scene, bcfg, "teapot binned frame", BINNED)
     binned_off = u8_off(quantize_u8, binned_img, img_pr)
     check(binned_off == 0.0, f"binned teapot frame: {binned_off:.4%} of u8 channels off by > 1 "
                              "from the per-ray frame (the same leaf test and visit order: none may be)")
@@ -918,13 +1090,16 @@ def main(device: str = "cuda") -> int:
     del img, img_pr, binned_img
     for mode in ("closest", "any_hit"):
         key = "closest" if mode == "closest" else "any"
-        walk_s, _, launched = binned_walk(kd, timing_inputs[mode], depth, mode == "any_hit")
+        tw = tile_walks("teapot", kd, timing_inputs[mode], depth, mode == "any_hit")
+        _, launched = binned_walk(kd, timing_inputs[mode], depth, mode == "any_hit")
         par = parity["block_loop"]
-        kernels.append(block_loop_entry("", mode, kd, launched, walk_s, binned_counts[mode], dict(
+        kernels.append(block_loop_entry("", mode, kd, launched, tw, binned_counts["block_loop"][mode], dict(
             scene="teapot", frame_s=binned_s, parity={"bounce0": par[f"{key}_b0"],
                                                       f"bounce{LATER_BOUNCE}": par[f"{key}_b{LATER_BOUNCE}"]})))
         del launched
-    log("phase 8 block-loop kernel times")
+        kernels.append(descend_entry("", mode, kd, timing_inputs[mode], depth,
+                                     binned_counts["binned_descend"][mode], dict(scene="teapot", frame_s=binned_s)))
+    log("phase 8 block-loop and round kernel times")
 
     # ---- 9. brute force: the Möller–Trumbore and Plücker kernels ----
     o_f, d_f, _, n_f, _ = frame_rays(cfg, dev)
@@ -932,6 +1107,10 @@ def main(device: str = "cuda") -> int:
     n_tri = verts.shape[0]
     soa, gpk = mt.swizzle_tris(verts), plucker.plucker_pack(verts)
     bo, bd = (x[start:start + BRUTE_PARITY_RAYS].contiguous() for x in (o_all, d_all))
+    # the 480x270 frame's launch shape: its first ray tile of primary rays
+    lcfg = Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48, **BRUTE_FRAME)
+    o_l, d_l, _, _, l_tile = frame_rays(lcfg, dev)
+    o_l, d_l = o_l[:l_tile].contiguous(), d_l[:l_tile].contiguous()
     brute_entries = {}
     for name, module, wrapper, plain, packed, ops in (
             ("mt_closest", mt, mt.mt_closest, mt.mt_closest_plain, soa, MT_OPS),
@@ -951,12 +1130,21 @@ def main(device: str = "cuda") -> int:
             if bool(hit.any()):
                 err = max(err, float((tk[part] - tp)[hit].abs().max()))
         b_ms, b_by = bound(packed.numel() * 4 + n_f * (24 + 8), ops * n_f * n_tri)
+        # one launch of the 480x270 frame: 16,384 rays
+        l_ms = time_ms(torch, lambda: wrapper(packed, o_l, d_l), 20)
+        tl, il = wrapper(packed, o_l, d_l)
+        tlp, ilp = plain(packed, o_l, d_l)
+        check(torch.equal(tl, tlp) and torch.equal(il, ilp), f"{name}: the 480x270 launch differs from its plain version")
+        lb_ms, lb_by = bound(packed.numel() * 4 + l_tile * (24 + 8), ops * l_tile * n_tri)
+        launch_shape = dict(rays=l_tile, triangles=n_tri, ms=l_ms, bound_ms=lb_ms, bound_by=lb_by)
+        log(f"phase 9 {name} at the 480x270 frame's launch shape: {l_tile} rays x {n_tri} triangles, {l_ms:.4f} "
+            f"ms/launch, bound {lb_ms:.4f} ms ({lb_by}), equal to its plain version")
         source, replaces = KERNELS[name]
         brute_entries[name] = dict(
             name=f"{name}[closest]", route="cuda", source=source, replaces=replaces, launches=None,
             max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3, bound_ms=b_ms, bound_by=b_by, library_ms=None,
             rays=n_f, triangles=n_tri, pairs=n_f * n_tri, operations=ops * n_f * n_tri, hits=hits,
-            scene="teapot, 1080p primary rays")
+            scene="teapot, 1080p primary rays", launch_shape=launch_shape)
         log(f"phase 9 {name}: {n_f} rays x {n_tri} triangles, {ms:.3f} ms/launch (plain {plain_s * 1e3:.1f} ms "
             f"in {BRUTE_PARITY_RAYS}-ray chunks), bound {b_ms:.4f} ms ({b_by}), {hits} hits, "
             f"equal to its plain version on all {n_f} rays")
@@ -1086,14 +1274,24 @@ def main(device: str = "cuda") -> int:
                    traversal_backend="mega")
     resolved = _backend(dkd, bmcfg)
     check(resolved == "binned", f"traversal_backend='mega' on {dM} nodes resolved to {resolved!r}, not 'binned'")
-    dbin_s, dbin_img, dbin_counts = frame(dscene, bmcfg, "dragon binned frame", "block_loop")
+    dbin_s, dbin_img, dbin_counts = frame(dscene, bmcfg, "dragon binned frame", BINNED)
     dbin_off = u8_off(quantize_u8, dbin_img, flag_img_pr)
-    check(dbin_off < U8_TOLERANCE, f"binned dragon frame: {dbin_off:.4%} of u8 channels off by > 1")
+    check(dbin_off == 0.0, f"binned dragon frame: {dbin_off:.4%} of u8 channels off by > 1 from the per-ray "
+                           "frame (the same leaf test and visit order: none may be)")
     log(f"phase 13 traversal_backend='mega' on the dragon tree ({dM} nodes > 1024) resolves to {resolved!r}; "
         f"binned frame (full 1920x1080, not cut): {dbin_s:.3f} s, launches per frame {dbin_counts}, "
         f"vs the per-ray flagship frame: {dbin_off:.6%} of u8 channels off by > 1, "
         f"max abs diff {float((dbin_img - flag_img_pr).abs().max()):.3g}")
     del dbin_img, flag_img, flag_img_pr
+    binned_sorts = None
+    if dbin_s < BINNED_SORT_LIMIT:  # both binned frames with sort_bounces on and off, in turns
+        binned_sorts = {"teapot": sort_samples(scene, bcfg), "dragon": sort_samples(dscene, bmcfg)}
+        for e in kernels:
+            if e["name"].startswith(("block_loop[", "binned_descend[")):
+                e["frame_sorts"] = binned_sorts["teapot"]
+    log(f"phase 13 binned frame seconds with sort_bounces on and off, in turns (sort_bounces="
+        f"{_sort_bounces(dscene, bmcfg, dev)} by default): "
+        + (json.dumps(binned_sorts) if binned_sorts else f"not timed: the frame took {BINNED_SORT_LIMIT} s or more"))
 
     # ---- 14. forest and binned parity on the dragon ----
     ddepth = _stack_depth(dkd, fcfg)
@@ -1194,12 +1392,15 @@ def main(device: str = "cuda") -> int:
     del tile_rays
     for mode in ("closest", "any_hit"):  # the whole binned walk of the tile
         key = "closest" if mode == "closest" else "any"
-        walk_s, _, launched = binned_walk(dkd, dinputs[mode], ddepth, mode == "any_hit")
+        tw = tile_walks("dragon", dkd, dinputs[mode], ddepth, mode == "any_hit")
+        _, launched = binned_walk(dkd, dinputs[mode], ddepth, mode == "any_hit")
         par = dpar["block_loop"]
-        kernels.append(block_loop_entry(",dragon", mode, dkd, launched, walk_s, dbin_counts[mode], dict(
-            scene="dragon", frame_s=dbin_s, parity={"bounce0": par[f"{key}_b0"],
-                                                    f"bounce{LATER_BOUNCE}": par[f"{key}_b{LATER_BOUNCE}"]})))
+        extra = dict(scene="dragon", frame_s=dbin_s, frame_sorts=binned_sorts and binned_sorts["dragon"])
+        kernels.append(block_loop_entry(",dragon", mode, dkd, launched, tw, dbin_counts["block_loop"][mode], dict(
+            extra, parity={"bounce0": par[f"{key}_b0"], f"bounce{LATER_BOUNCE}": par[f"{key}_b{LATER_BOUNCE}"]})))
         del launched
+        kernels.append(descend_entry(",dragon", mode, dkd, dinputs[mode], ddepth,
+                                     dbin_counts["binned_descend"][mode], extra))
     log("phase 15 flagship kernel times")
 
     # ---- 16. where one flagship frame's device time goes ----
@@ -1237,7 +1438,8 @@ def main(device: str = "cuda") -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"done: teapot frame {frame_s:.3f} s, dragon flagship frame {flag_s:.3f} s, dragon forest frame "
         f"{forest_s:.3f} s, dragon binned frame {dbin_s:.3f} s, teapot mega frame {mega_s:.3f} s, "
-        f"teapot binned frame {binned_s:.3f} s on {card}")
+        f"teapot binned frame {binned_s:.3f} s on {card}; binned frames with sort_bounces on and off: "
+        f"{json.dumps(binned_sorts)}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,8 @@
 // The warp-coherent kd walk shared by the packet, mega and forest kernels
 // (packet_traverse.cu, kd_walk.cu): one template over three node-table
-// layouts.
+// layouts.  Its staging (cp_async16) and its lane-spread leaf test
+// (lane_spread_test) also serve the binned walk's block loop
+// (block_loop.cu).
 //
 // A packet is one warp of 32 consecutive rays (the 8x128 screen-block order
 // and the bounce and shadow sorts make them neighbours).  The warp shares
@@ -181,6 +183,54 @@ __device__ __forceinline__ float3 shfl3(const float3& v, int src) {
                      __shfl_sync(kFull, v.z, src));
 }
 
+// The lane-spread leaf test of one ray (o, d, its Plücker row r, the same
+// in every lane) against a block staged as SharedRows: lane l tests slots
+// 4l..4l+3 of every 128 with kdleaf::edge_signs<4>; a slot that passes
+// gets its Möller–Trumbore t from `tris` (the block's block_tris rows), and
+// `on_distance(slot)` is called for it; a warp reduction picks the smallest
+// (t, slot), which is test_block's "first strictly smaller t in slot
+// order".  `bt` is the starting bound on entry (the walks: the ray's clip;
+// the block loop: inf) and the winner's t on return, in every lane.
+// Returns the winning slot, kNoSlot where none is below the bound.
+// kStop (any-hit walks): stop at the first hit slot, and return the first
+// hit slot, not the closest.
+template <bool kStop, class OnDistance>
+__device__ __forceinline__ int lane_spread_test(const kdleaf::SharedRows& rows, const float* tris, int slots,
+                                                int lane, const float rr[6], const float3& oo,
+                                                const float3& dd, float& bt, OnDistance on_distance) {
+  int bj = kNoSlot;
+  for (int base = 0; base < slots; base += 128) {
+    const int j0 = base + 4 * lane;
+    if (j0 < slots) {
+      bool inside[4];
+      kdleaf::edge_signs<4>(rows, j0, rr, inside);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (!inside[q] || (kStop && bj != kNoSlot)) continue;
+        on_distance(j0 + q);
+        const float t = kdleaf::mt_distance(tris + 9 * (j0 + q), oo, dd);
+        if (t > 0.0f && t < bt) {
+          bt = t;
+          bj = j0 + q;
+        }
+      }
+    }
+    if (kStop && __any_sync(kFull, bj != kNoSlot)) break;
+  }
+  // the smallest (t, slot) over the warp; kStop: the first hit slot
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(kFull, bt, off);
+    const int oj = __shfl_xor_sync(kFull, bj, off);
+    const bool better = kStop ? oj < bj : (ot < bt || (ot == bt && oj < bj));
+    if (better) {
+      bt = ot;
+      bj = oj;
+    }
+  }
+  return bj;
+}
+
 // Per-warp state of the walk.  Warp-uniform: the staged block.  Per lane:
 // the ray and its running result.
 template <bool kAnyHit, bool kCount>
@@ -226,36 +276,9 @@ struct Packet {
       for (int k = 0; k < 6; ++k) rr[k] = __shfl_sync(kFull, r[k], src);
       const float3 oo = shfl3(o, src), dd = shfl3(d, src);
       float bt = __shfl_sync(kFull, clip(), src);
-      int bj = kNoSlot;
-      for (int base = 0; base < tb.slots; base += 128) {
-        const int j0 = base + 4 * lane;
-        if (j0 < tb.slots) {
-          bool inside[4];
-          kdleaf::edge_signs<4>(rows, j0, rr, inside);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if (!inside[q] || (kAnyHit && bj != kNoSlot)) continue;
-            if (kCount) ++st[4];
-            const float t = kdleaf::mt_distance(tris + 9 * (j0 + q), oo, dd);
-            if (t > 0.0f && t < bt) {
-              bt = t;
-              bj = j0 + q;
-            }
-          }
-        }
-        if (kAnyHit && __any_sync(kFull, bj != kNoSlot)) break;
-      }
-      // the smallest (t, slot) over the warp; any-hit: the first hit slot
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ot = __shfl_xor_sync(kFull, bt, off);
-        const int oj = __shfl_xor_sync(kFull, bj, off);
-        const bool better = kAnyHit ? oj < bj : (ot < bt || (ot == bt && oj < bj));
-        if (better) {
-          bt = ot;
-          bj = oj;
-        }
-      }
+      const int bj = lane_spread_test<kAnyHit>(rows, tris, tb.slots, lane, rr, oo, dd, bt, [&](int) {
+        if (kCount) ++st[4];
+      });
       if (lane == src && bj != kNoSlot) {
         t_best = bt;
         prim = __ldg(tb.orig + static_cast<size_t>(blk) * tb.slots + bj);

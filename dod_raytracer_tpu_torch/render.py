@@ -95,7 +95,7 @@ def _bounce_perm(scene, o, d, active, cfg):
 
 # the backends whose frames the bounce sort made faster on the H100
 # (chip_smoke.py phases 11 and 12, PERF.md §6); the mega frame (phase 7)
-# was slower sorted, the binned frames were not timed both ways
+# and both binned frames (phase 13) were slower sorted
 _SORTED_BACKENDS = ("packet", "forest")
 
 

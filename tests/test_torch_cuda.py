@@ -1,7 +1,7 @@
 """The CUDA kernels (the packet walk and the per-ray walk it replaced, the
-mega and forest walks, the binned walk's block-loop leaf stage, the
-Möller–Trumbore and Plücker brute force) vs their plain versions, on a
-CUDA device.
+mega and forest walks, the binned walk's block-loop leaf stage and its
+descend round, the Möller–Trumbore and Plücker brute force) vs their
+plain versions, on a CUDA device.
 
 The kernels have no CPU mode, so every test here skips without a card.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -633,6 +633,136 @@ def test_block_loop_wrappers_reject_bad_inputs(teapot_kd):
         with pytest.raises(ValueError, match=table):
             binned.binned_traverse(dataclasses.replace(kd, **{table: None}), o, d, t_max, depth, False)
     assert binned.launches == before
+
+
+BLOCK_LOOP_CASES = ["same", "warp32", "many", "idle", "ragged"]
+
+
+def _pattern_rays(tv, kd, case, seed):
+    """Rays and keys for the block loop's key patterns: every key the same
+    ("same"); 32 distinct keys in every warp ("warp32"); random keys, more
+    distinct ones a CTA than its ring holds ("many"); random keys with -1
+    and keys >= B among them ("idle"); and "many" on a ray count that is
+    not a multiple of the CTA or the warp ("ragged").  A ray with a key in
+    [0, B) is aimed at a triangle of its block, so most of them hit it."""
+    rng = np.random.default_rng(seed)
+    orig = kd.block_orig.cpu().numpy()
+    B = orig.shape[0]
+    full = np.nonzero((orig >= 0).any(1))[0]
+    n = N - 77 if case == "ragged" else N
+    if case == "same":
+        keys = np.full(n, full[len(full) // 2])
+    elif case == "warp32":
+        keys = np.concatenate([full[(np.arange(32) + w) % len(full)] for w in range(n // 32)])
+    else:
+        keys = rng.integers(0, B, n)
+    if case == "idle":
+        keys[rng.random(n) < 1 / 3] = -1
+        big = rng.random(n) < 1 / 6
+        keys[big] = B + rng.integers(0, 3, int(big.sum()))
+        keys[:3] = [-(2**31), 2**31 - 1, B]
+    o = ((rng.random((n, 3)) * 2 - 1) * 6.0).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    for i in np.nonzero((keys >= 0) & (keys < B))[0]:
+        tri = orig[keys[i]][orig[keys[i]] >= 0]
+        if tri.size:
+            d[i] = tv[rng.choice(tri)].mean(axis=0) - o[i]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.from_numpy(o).cuda(), torch.from_numpy(d.astype(np.float32)).cuda(),
+            torch.from_numpy(keys.astype(np.int32)).cuda())
+
+
+def _distinct_keys(keys, B, group):
+    """(groups with a key in [0, B), distinct such keys summed over the
+    groups) over runs of ``group`` consecutive rays."""
+    k = keys.cpu().numpy()
+    k = np.where((k >= 0) & (k < B), k, -1)
+    sets = [set(k[s:s + group].tolist()) - {-1} for s in range(0, k.size, group)]
+    return sum(1 for x in sets if x), sum(len(x) for x in sets)
+
+
+@pytest.mark.parametrize("case", BLOCK_LOOP_CASES)
+def test_block_loop_key_patterns(teapot_kd, case):
+    """The block loop against its plain version (on the card and on the
+    CPU) and the per-ray kernel it replaced, bit for bit;
+    its measurement build gives the same outputs, the per-ray kernel's
+    counts and marks, and the distinct keys per warp and per CTA."""
+    tv, kd, _ = teapot_kd
+    o, d, keys = _pattern_rays(tv, kd, case, seed=BLOCK_LOOP_CASES.index(case))
+    B, S = kd.block_orig.shape
+    before = binned.launches["closest"]
+    got = binned.block_loop_intersect(kd, o, d, keys)
+    assert binned.launches["closest"] == before + 1
+    valid = (keys >= 0) & (keys < B)
+    assert int(torch.isfinite(got[0]).sum()) > int(valid.sum()) // 4
+    refs = {"plain": ttrav.leaf_plain(kd, o, d, keys),
+            "plain_cpu": ttrav.leaf_plain(_cpu_kd(kd), o.cpu(), d.cpu(), keys.cpu()),
+            "per_ray": binned.block_loop_per_ray(kd, o, d, keys)}
+    for name, ref in refs.items():
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu(), b.cpu()), name
+    assert not torch.isfinite(got[0][~valid]).any() and bool((got[1][~valid] == 2**30).all())
+    stats = torch.zeros((keys.shape[0], 2), dtype=torch.int32, device="cuda")
+    touched = torch.zeros((B, 2 + S), dtype=torch.int32, device="cuda")
+    counts = torch.zeros((len(binned.KEY_COUNTS),), dtype=torch.int32, device="cuda")
+    for a, b in zip(binned.block_loop_intersect(kd, o, d, keys, stats=stats, touched=touched, key_counts=counts),
+                    got):
+        assert torch.equal(a, b)
+    rstats, rtouched = torch.zeros_like(stats), torch.zeros_like(touched)
+    binned.block_loop_per_ray(kd, o, d, keys, stats=rstats, touched=rtouched)
+    assert torch.equal(stats, rstats) and torch.equal(touched, rtouched)
+    assert counts.tolist() == [*_distinct_keys(keys, B, 32), *_distinct_keys(keys, B, 256)]
+
+
+def _recording_leaf(rounds):
+    def leaf(kd, o, d, keys):
+        rounds.append((o.clone(), keys.clone()))
+        return ttrav.leaf_plain(kd, o, d, keys)
+    return leaf
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_descend_rounds_match_the_plain_walk(teapot_kd, any_hit):
+    """The round kernel against its plain version on the card: the whole
+    state after every round equal, on a batch with idle rays; each round's
+    keys those of traverse._walk's same round (its leaf stage recorded);
+    the device-round walk's outputs the plain walk's, with one block-loop
+    launch and one descend launch a round."""
+    _, kd, depth = teapot_kd
+    o, d, t_max = make_rays("clipped", seed=14)
+    mode = "any_hit" if any_hit else "closest"
+    walk_rounds = []
+    ref = ttrav._walk(kd, o, d, t_max, depth, any_hit, False, _recording_leaf(walk_rounds))
+    nodes = ttrav._pack_nodes(kd)
+    st, inv_d = binned.init_state(kd, o, d, t_max, depth)
+    t_leaf = prim_leaf = None
+    rnd = 0
+    while True:
+        plain = st.clone()
+        before = binned.descend_launches[mode]
+        binned.descend(kd, nodes, o, d, inv_d, t_max, st, t_leaf, prim_leaf, rnd, any_hit)
+        assert binned.descend_launches[mode] == before + 1
+        binned.descend_plain(kd, nodes, o, d, inv_d, t_max, plain, t_leaf, prim_leaf, rnd, any_hit)
+        for f in dataclasses.fields(st):
+            assert torch.equal(getattr(st, f.name), getattr(plain, f.name)), (rnd, f.name)
+        work = st.keys >= 0
+        if rnd < len(walk_rounds):
+            assert torch.equal(o[work], walk_rounds[rnd][0]) and torch.equal(st.keys[work], walk_rounds[rnd][1])
+        else:
+            assert not work.any()
+        t_leaf, prim_leaf = binned.block_loop_intersect(kd, o, d, st.keys, mode)
+        if int(st.counts[rnd % 2]) == 0:
+            break
+        rnd += 1
+    # the walk ends in the round whose descend or fold leaves no ray active
+    assert len(walk_rounds) - 1 <= rnd <= len(walk_rounds) and rnd > 1
+    for a, b in zip((st.t_best, st.prim, st.found.bool()), ref):
+        assert torch.equal(a, b)
+    loops, descends = binned.launches[mode], binned.descend_launches[mode]
+    got = binned.binned_traverse(kd, o, d, t_max, depth, any_hit)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert binned.launches[mode] - loops == binned.descend_launches[mode] - descends == rnd + 1
 
 
 @pytest.fixture(scope="module")
