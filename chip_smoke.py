@@ -12,7 +12,9 @@ Phases, each printed with its elapsed seconds as it ends:
      template, kd_warp.cuh; both sources' whole -Xptxas -v is printed),
      block_loop.cu (the binned walk's leaf stage, and the per-ray
      kernel it replaced), binned_descend.cu (the binned walk's descend round),
-     mt_closest.cu and plucker_closest.cu (brute force);
+     mt_closest.cu and plucker_closest.cu (brute force, one split-kernel
+     template, brute.cuh, and the per-ray kernels they replaced; both
+     sources' whole -Xptxas -v is printed);
   3. the reference scene from config.ini (1920x1080): 16 spheres, 6 walls,
      the cylinder, the teapot (6,320 triangles), 9 lights, 10 bounces, with
      the kd-tree shape MaxPrims=96, leaf_chunk_lanes=48;
@@ -54,16 +56,23 @@ Phases, each printed with its elapsed seconds as it ends:
      distinct keys per warp and per CTA over
      the walk's launches (``block_loop_entry``), and the round kernel's
      time per launch, plain time and bound (``descend_entry``);
-  9. brute force: the Möller–Trumbore and Plücker kernels once each on the
+  9. brute force: the Möller–Trumbore and Plücker kernels on the
      2,073,600 primary rays of the 1080p teapot frame against its 6,320
-     triangles, held to their plain versions and the Plücker kernel to
-     brute force, their times, plain times and bounds, also at the 480x270
-     frame's launch shape (16,384 rays), and an fp32 torch.matmul of the
-     Plücker product beside them; then the
-     teapot frame at 480x270 with brute_threshold=6320 through
+     triangles and at the 480x270 frame's launch shape (16,384 rays), each
+     held to its plain version and to the per-ray kernel it replaced bit
+     for bit (the Plücker kernel also to brute force) and timed in turns
+     with that kernel (new, per-ray, per-ray, new), beside its plain time
+     and bound; at the launch shape the split count the rule picks, the
+     CTAs, the time at other split counts, and the stats build's exit
+     counts at both shapes; the cross-split tie case (the teapot twice,
+     the copy 6,400 triangles on) bit for bit at 2, 4 and the rule's
+     splits; and an fp32 torch.matmul of the Plücker product beside them;
+     then the teapot frame at 480x270 with brute_threshold=6320 through
      triangle_backend 'jnp', 'pallas' (the Möller–Trumbore kernel) and
-     'plucker' (the Plücker kernel), and through the packet walk and the
-     per-ray walk, in turns (packet, per-ray, per-ray, packet);
+     'plucker' (the Plücker kernel), with the kernels' share of each
+     frame (launches x ms per launch over the frame's seconds), and
+     through the packet walk and the per-ray walk, in turns (packet,
+     per-ray, per-ray, packet);
  10. the flagship scene of bench.py: the procedural dragon (869,952
      triangles) at 1920x1080, MaxPrims=192, leaf_chunk_lanes=48, seed 0,
      built on the card; its load and build times and tree shape;
@@ -91,8 +100,10 @@ Phases, each printed with its elapsed seconds as it ends:
      packet walk on the same tree.
      Closest-hit
      brute force is the Möller–Trumbore kernel, held first to the torch
-     brute force on 4,096 of the rays; any-hit brute force is torch on the
-     shadow rays of 4,096 points;
+     brute force on 4,096 of the rays and, at bounce 0, timed once against
+     the per-ray kernel it replaced and once at each of several split
+     counts (equal bits); any-hit brute force is torch on the shadow rays
+     of 4,096 points;
  15. the packet and forest warp walks' times, plain times and bounds at
      the flagship's shapes (262,144 closest-hit and 2,359,296 any-hit rays
      of one tile), each in turns with the per-ray walk it replaced, and
@@ -260,7 +271,7 @@ def main(device: str = "cuda") -> int:
 
     from dod_raytracer_tpu_torch import Config, default_scene, quantize_u8, render_image
     from dod_raytracer_tpu_torch.intersect import closest_families, closest_hit, occluded_families
-    from dod_raytracer_tpu_torch.ops import _cuda, binned, forest, mega, mt, packet, plucker
+    from dod_raytracer_tpu_torch.ops import _cuda, binned, brute, forest, mega, mt, packet, plucker
     from dod_raytracer_tpu_torch.ops.traverse import (_PLAIN_CHUNK, _backend, _stack_depth, _walk, leaf_plain,
                                                       traverse_forest_plain, traverse_plain)
     from dod_raytracer_tpu_torch.ops.triangle import (brute_force_closest, mt_single,
@@ -280,7 +291,7 @@ def main(device: str = "cuda") -> int:
     counters = {"packet_traverse": packet, "mega_walk": mega, "forest_walk": forest, "block_loop": binned,
                 "mt_closest": mt, "plucker_closest": plucker}  # kernel -> the module that counts it
     for name, module in (("packet_traverse", packet), ("mega_walk", mega), ("forest_walk", forest),
-                         ("block_loop", binned)):
+                         ("block_loop", binned), ("mt_closest", mt), ("plucker_closest", plucker)):
         counters[f"{name}_per_ray"] = SimpleNamespace(launches=module.per_ray_launches,
                                                       reset_launches=module.reset_launches)
     counters["binned_descend"] = SimpleNamespace(launches=binned.descend_launches,
@@ -367,14 +378,14 @@ def main(device: str = "cuda") -> int:
     builds = _cuda.build_all(SOURCES, force=True)
     for b in builds:
         for line in b["log"].splitlines():
-            if b["name"] in ("packet_traverse", "kd_walk") or "registers" in line or "spill" in line \
+            if b["name"] in ("packet_traverse", "kd_walk", "mt_closest", "plucker_closest") \
+                    or "registers" in line or "spill" in line \
                     or "stack frame" in line:
                 print(f"  ptxas {b['name']}:", line.strip(), flush=True)
     for module in (packet, mega, binned, mt, plucker):
         module._fn()
-    packet._fn_per_ray()
-    mega._fn_per_ray()
-    binned._fn_per_ray()
+    for module in (packet, mega, binned, mt, plucker):
+        module._fn_per_ray()
     binned._fn_descend()
     log("phase 2 build: " + ", ".join(f"{b['name']}.cu nvcc {b['seconds']:.2f} s -> "
                                       f"{os.path.relpath(b['path'], ROOT)}" for b in builds)
@@ -1112,11 +1123,31 @@ def main(device: str = "cuda") -> int:
     o_l, d_l, _, _, l_tile = frame_rays(lcfg, dev)
     o_l, d_l = o_l[:l_tile].contiguous(), d_l[:l_tile].contiguous()
     brute_entries = {}
-    for name, module, wrapper, plain, packed, ops in (
-            ("mt_closest", mt, mt.mt_closest, mt.mt_closest_plain, soa, MT_OPS),
-            ("plucker_closest", plucker, plucker.plucker_closest, plucker.plucker_closest_plain, gpk, PLUCKER_OPS)):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the cross-split tie case: the teapot twice, the copy 6,400 triangles on
+    # (12,800 columns: 2 or 4 splits put every copy in another split)
+    tie_verts = torch.cat([verts, torch.zeros((6400 - n_tri, 3, 3), device=dev), verts])
+
+    def same(out, ref):
+        return torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+    def exit_counts(module, wrapper, packed, o, d, ref):
+        """The stats build's counts on these rays (its bits checked too)."""
+        stats = torch.zeros((len(brute.STATS_ROWS), len(module.EXITS)), dtype=torch.int64, device=dev)
+        check(same(wrapper(packed, o, d, stats=stats), ref), f"{module.NAME}: the stats build differs")
+        return {row: dict(zip(module.EXITS, vals)) for row, vals in zip(brute.STATS_ROWS, stats.tolist())}
+
+    for name, module, wrapper, per_ray_k, plain, pack, packed, ops in (
+            ("mt_closest", mt, mt.mt_closest, mt.mt_closest_per_ray, mt.mt_closest_plain, mt.swizzle_tris, soa,
+             MT_OPS),
+            ("plucker_closest", plucker, plucker.plucker_closest, plucker.plucker_closest_per_ray,
+             plucker.plucker_closest_plain, plucker.plucker_pack, gpk, PLUCKER_OPS)):
+        t_total = packed.shape[-1]
         tk, ik = wrapper(packed, o_f, d_f)
-        ms = time_ms(torch, lambda: wrapper(packed, o_f, d_f), 20)
+        check(same(per_ray_k(packed, o_f, d_f), (tk, ik)), f"{name}: differs from the per-ray kernel on {n_f} rays")
+        turns = time_turns(torch, {"new": lambda: wrapper(packed, o_f, d_f),
+                                   "per_ray": lambda: per_ray_k(packed, o_f, d_f)}, TIMING_REPS)
+        ms = turns["new"]
         plain_s, err, hits = 0.0, 0.0, 0
         for s0 in range(0, n_f, BRUTE_PARITY_RAYS):  # the plain version on every ray, in chunks
             part = slice(s0, s0 + BRUTE_PARITY_RAYS)
@@ -1130,25 +1161,53 @@ def main(device: str = "cuda") -> int:
             if bool(hit.any()):
                 err = max(err, float((tk[part] - tp)[hit].abs().max()))
         b_ms, b_by = bound(packed.numel() * 4 + n_f * (24 + 8), ops * n_f * n_tri)
-        # one launch of the 480x270 frame: 16,384 rays
-        l_ms = time_ms(torch, lambda: wrapper(packed, o_l, d_l), 20)
+        full_splits = brute.splits(n_f, t_total, sms)
+        full_exits = exit_counts(module, wrapper, packed, o_f, d_f, (tk, ik))
+        # one launch of the 480x270 frame: 16,384 rays, timed in turns with the per-ray kernel
         tl, il = wrapper(packed, o_l, d_l)
-        tlp, ilp = plain(packed, o_l, d_l)
-        check(torch.equal(tl, tlp) and torch.equal(il, ilp), f"{name}: the 480x270 launch differs from its plain version")
+        check(same((tl, il), plain(packed, o_l, d_l)) and same(per_ray_k(packed, o_l, d_l), (tl, il)),
+              f"{name}: the 480x270 launch differs from its plain version or the per-ray kernel")
+        l_turns = time_turns(torch, {"new": lambda: wrapper(packed, o_l, d_l),
+                                     "per_ray": lambda: per_ray_k(packed, o_l, d_l)}, TIMING_REPS)
+        l_ms = l_turns["new"]
         lb_ms, lb_by = bound(packed.numel() * 4 + l_tile * (24 + 8), ops * l_tile * n_tri)
-        launch_shape = dict(rays=l_tile, triangles=n_tri, ms=l_ms, bound_ms=lb_ms, bound_by=lb_by)
-        log(f"phase 9 {name} at the 480x270 frame's launch shape: {l_tile} rays x {n_tri} triangles, {l_ms:.4f} "
-            f"ms/launch, bound {lb_ms:.4f} ms ({lb_by}), equal to its plain version")
+        rule = brute.splits(l_tile, t_total, sms)
+        ray_ctas = -(-l_tile // brute.RAYS_PER_CTA)
+        by_splits = {}
+        for c in sorted({1, 2, 4, 8, 16, 26, t_total // brute.TILE, rule}):
+            check(same(wrapper(packed, o_l, d_l, splits=c), (tl, il)), f"{name}: {c} splits differ")
+            by_splits[c] = time_ms(torch, lambda: wrapper(packed, o_l, d_l, splits=c), TIMING_REPS)
+        l_exits = exit_counts(module, wrapper, packed, o_l, d_l, (tl, il))
+        # the tie case on the card: the originals win every tie across a split boundary
+        tie = pack(tie_verts)
+        to, td = bo[:l_tile], bd[:l_tile]  # rays of the parity tile, which hit the teapot most
+        tie_ref = plain(tie, to, td)
+        tie_hit = torch.isfinite(tie_ref[0])
+        check(int(tie_hit.sum()) > l_tile // 8 and bool((tie_ref[1][tie_hit] < 6400).all()),
+              f"{name}: the tie case has {int(tie_hit.sum())} hits, or a copy won a tie")
+        for c in (None, 2, 4):
+            check(same(wrapper(tie, to, td, splits=c), tie_ref), f"{name}: the tie case differs at {c} splits")
+        launch_shape = dict(rays=l_tile, triangles=n_tri, ms=l_ms, per_ray_ms=l_turns["per_ray"], bound_ms=lb_ms,
+                            bound_by=lb_by, splits=rule, ctas=ray_ctas * rule, sms=sms, ms_by_splits=by_splits,
+                            exits=l_exits)
+        log(f"phase 9 {name} at the 480x270 frame's launch shape: {l_tile} rays x {n_tri} triangles, in turns "
+            f"{l_ms:.4f} ms/launch (per-ray kernel {l_turns['per_ray']:.4f} ms), bound {lb_ms:.4f} ms ({lb_by}); "
+            f"{rule} splits ({ray_ctas} ray tiles x {rule} = {ray_ctas * rule} CTAs on {sms} SMs); ms by splits "
+            f"{json.dumps(by_splits)}; exits {json.dumps(l_exits)}; equal to its plain version and the per-ray "
+            f"kernel, and on the tie case ({l_tile} rays of the parity tile, {int(tie_hit.sum())} hits, "
+            f"{tie.shape[-1]} columns) at 2, 4 and {brute.splits(l_tile, tie.shape[-1], sms)} splits")
         source, replaces = KERNELS[name]
         brute_entries[name] = dict(
             name=f"{name}[closest]", route="cuda", source=source, replaces=replaces, launches=None,
             max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            rays=n_f, triangles=n_tri, pairs=n_f * n_tri, operations=ops * n_f * n_tri, hits=hits,
+            per_ray_ms=turns["per_ray"], rays=n_f, triangles=n_tri, pairs=n_f * n_tri, operations=ops * n_f * n_tri,
+            hits=hits, splits=full_splits, ctas=-(-n_f // brute.RAYS_PER_CTA) * full_splits, exits=full_exits,
             scene="teapot, 1080p primary rays", launch_shape=launch_shape)
-        log(f"phase 9 {name}: {n_f} rays x {n_tri} triangles, {ms:.3f} ms/launch (plain {plain_s * 1e3:.1f} ms "
-            f"in {BRUTE_PARITY_RAYS}-ray chunks), bound {b_ms:.4f} ms ({b_by}), {hits} hits, "
-            f"equal to its plain version on all {n_f} rays")
-        del tk, ik
+        log(f"phase 9 {name}: {n_f} rays x {n_tri} triangles, in turns {ms:.3f} ms/launch (per-ray kernel "
+            f"{turns['per_ray']:.3f} ms; plain {plain_s * 1e3:.1f} ms in {BRUTE_PARITY_RAYS}-ray chunks), bound "
+            f"{b_ms:.4f} ms ({b_by}), {full_splits} split(s), {hits} hits, exits {json.dumps(full_exits)}; equal to "
+            f"its plain version and the per-ray kernel on all {n_f} rays")
+        del tk, ik, tie
     # the Plücker kernel against brute force (tests/test_pallas.py's rule, ties and edges excused)
     tp, ip = plucker.plucker_closest(gpk, bo, bd)
     tb, ib = brute_force_closest(verts, bo, bd)
@@ -1214,8 +1273,13 @@ def main(device: str = "cuda") -> int:
     offs = {b: u8_off(quantize_u8, bframes[b][1], bpk_img) for b in ("pallas", "plucker")}
     offs["per_ray"] = u8_off(quantize_u8, bpr_img, bpk_img)
     check(all(v < U8_TOLERANCE for v in offs.values()), f"480x270 frames vs packet frame: {offs}")
+    shares = {name: brute_entries[name]["launches"] * brute_entries[name]["launch_shape"]["ms"]
+              / (bframes[b][0] * 1e3) for b, name in (("pallas", "mt_closest"), ("plucker", "plucker_closest"))}
+    for name, share in shares.items():
+        brute_entries[name]["share_of_frame"] = share
     log("phase 9 480x270 frames, 10 bounces, brute_threshold=6320: "
         + ", ".join(f"{b} {bframes[b][0]:.3f} s (launches {bframes[b][2]})" for b in bframes)
+        + f"; the kernels' share of their frames (launches x ms per launch / frame): {json.dumps(shares)}"
         + f"; without brute_threshold, in turns: packet walk {json.dumps(bpk_s)} s (launches {bpk_counts}), "
         f"per-ray walk {json.dumps(bpr_s)} s; 'pallas' equals 'jnp' bit for bit; "
         f"u8 channels off by > 1 from the packet frame: {offs}")
@@ -1305,15 +1369,34 @@ def main(device: str = "cuda") -> int:
                             "block_loop")}
     dsoa = mt.swizzle_tris(dverts)
 
+    dragon_brute = {}
+
     def mt_brute(verts, o, d):
         """Closest-hit brute force by the Möller–Trumbore kernel, held first
-        to the torch brute force on DRAGON_BRUTE_RAYS of the rays, bit for bit."""
-        tk, ik = mt.mt_closest(dsoa, o, d)
+        to the torch brute force on DRAGON_BRUTE_RAYS of the rays, bit for
+        bit; the first time, timed once against the per-ray kernel it
+        replaced (equal bits)."""
+        sec, (tk, ik) = wall_s(torch, lambda: mt.mt_closest(dsoa, o, d))
         tb, ib = brute_closest(verts, o[:DRAGON_BRUTE_RAYS], d[:DRAGON_BRUTE_RAYS])
         check(torch.equal(tk[:DRAGON_BRUTE_RAYS], tb) and torch.equal(ik[:DRAGON_BRUTE_RAYS], ib),
               "mt_closest on the dragon differs from the torch brute force")
+        timed = ""
+        if not dragon_brute:
+            per_s, per_out = wall_s(torch, lambda: mt.mt_closest_per_ray(dsoa, o, d))
+            check(torch.equal(per_out[0], tk) and torch.equal(per_out[1], ik),
+                  "mt_closest on the dragon differs from the per-ray kernel")
+            rule = brute.splits(o.shape[0], dsoa.shape[-1], sms)
+            by_splits = {}
+            for c in sorted({2, 4, 8, 16, 32, rule}):
+                c_s, out = wall_s(torch, lambda: mt.mt_closest(dsoa, o, d, splits=c))
+                check(torch.equal(out[0], tk) and torch.equal(out[1], ik), f"mt_closest on the dragon: {c} splits differ")
+                by_splits[c] = c_s * 1e3
+            dragon_brute.update(rays=o.shape[0], triangles=verts.shape[0], ms=sec * 1e3, per_ray_ms=per_s * 1e3,
+                                splits=rule, ms_by_splits=by_splits)
+            timed = (f"; timed once: {sec * 1e3:.2f} ms ({rule} splits), per-ray kernel {per_s * 1e3:.2f} ms, equal "
+                     f"bits; ms by splits, once each: {json.dumps(by_splits)}")
         log(f"phase 14 mt_closest brute force on {o.shape[0]} rays x {verts.shape[0]} triangles, "
-            f"equal to the torch brute force on {DRAGON_BRUTE_RAYS} of them bit for bit")
+            f"equal to the torch brute force on {DRAGON_BRUTE_RAYS} of them bit for bit" + timed)
         return tk, ik
 
     for k, (qo, qd, qt), (so, sd, st) in bounces(dscene, fcfg, o_all[w], d_all[w], raw_all[w],
@@ -1363,6 +1446,9 @@ def main(device: str = "cuda") -> int:
             dpar[kname][f"any_b{k}"].update(check_any(
                 f"bounce {k}, {DRAGON_BRUTE_RAYS} points per light", kname, [x[sub] for x in out], brefs,
                 dverts, so, sd))
+
+    check(bool(dragon_brute), "phase 14 did not time the dragon brute force")
+    brute_entries["mt_closest"]["dragon"] = dragon_brute
 
     # ---- 15. flagship kernel times and bounds ----
     tstart = wstart // dtile * dtile

@@ -18,8 +18,13 @@ adds only a signed zero, which no test reads.  The kernel and
 bits; ``torch.matmul`` would leave the order to the card.
 
 ``plucker_closest`` launches the kernel for CUDA tensors and takes the
-plain version only for CPU tensors.  Every kernel launch adds one to
-``launches["closest"]``; nothing else does.
+plain version only for CPU tensors.  On the card a call splits the
+triangle axis over CTAs when the rays alone would not fill the card and
+merges the splits exactly (``ops/brute.py``), with exact early exits in
+the pair test; it adds one to ``launches["closest"]`` however many
+launches it makes; nothing else does.  ``plucker_closest_per_ray`` (the
+one thread per ray kernel it replaced) is for measurement only, with its
+own count.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import ctypes
 
 import torch
 
-from . import _cuda
+from . import _cuda, brute
 from .ray import INF
 from .triangle import _cross, _dot, first_min, plucker_row
 
@@ -37,13 +42,18 @@ TILE_T = 512  # triangle padding of plucker_pack (the JAX package's tile)
 # the feature rows of each of the five sections [s0|s1|s2|den|num] that are
 # not zero by construction
 ROWS = (range(0, 6), range(0, 6), range(0, 6), range(0, 3), range(6, 10))
+# the stats build's columns: the stage a pair stopped at (the signs of s0
+# and s1, of s2, of num against den's) or "div", the whole test
+EXITS = ("s0s1", "s2", "num_den", "div")
 
 launches = {"closest": 0}
+per_ray_launches = {"closest": 0}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, per_ray_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def plucker_pack(verts: torch.Tensor, tile_t: int = TILE_T) -> torch.Tensor:
@@ -107,38 +117,54 @@ def plucker_closest_plain(g: torch.Tensor, o: torch.Tensor, d: torch.Tensor, chu
 
 
 def _fn():
-    return _cuda.library(NAME, "dod_plucker_closest", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    return _cuda.library(NAME, "dod_plucker_closest", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def _fn_per_ray():
+    return _cuda.library(NAME, "dod_plucker_closest_per_ray",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+def _check(g, o, d) -> None:
+    t_total = g.shape[-1]
+    if g.dim() != 3 or t_total % TILE_T:
+        raise ValueError(f"g has shape {tuple(g.shape)}: expected (5, 10, a multiple of {TILE_T})")
+    brute.check("g", g, (5, 10, t_total), o, d)
 
 
 @torch.no_grad()
-def plucker_closest(g: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
+def plucker_closest(g: torch.Tensor, o: torch.Tensor, d: torch.Tensor, splits=None, stats=None):
     """Closest hit of every ray over all triangles -> (t (N,) f32, idx (N,)
     i32); a miss gives (inf, 0), and the lowest index wins a tie.
 
     ``g`` comes from ``plucker_pack``: (5, 10, T'), T' a multiple of
-    ``TILE_T``.
+    ``TILE_T``.  t and idx are ``plucker_closest_plain``'s bits, whatever
+    the split count.  For measurement on the card: ``splits`` overrides
+    ``brute.splits``' choice, and ``stats``, a zeroed (2, 4) int64 CUDA
+    tensor, takes the stats build's counts (rows ``brute.STATS_ROWS``,
+    columns ``EXITS``).
     """
     if o.device.type == "cpu":
         return plucker_closest_plain(g, o, d)
     if o.device.type != "cuda":
         raise ValueError(f"plucker_closest runs on cuda or cpu tensors, got {o.device}")
-    n = o.shape[0]
-    dev = o.device
-    _cuda.check_count(n)
-    t_total = g.shape[-1]
-    if g.dim() != 3 or t_total % TILE_T:
-        raise ValueError(f"g has shape {tuple(g.shape)}: expected (5, 10, a multiple of {TILE_T})")
-    _cuda.check("g", g, torch.float32, (5, 10, t_total), dev)
-    _cuda.check("o", o, torch.float32, (n, 3), dev)
-    _cuda.check("d", d, torch.float32, (n, 3), dev)
-    t_out = torch.empty((n,), dtype=torch.float32, device=dev)
-    idx = torch.empty((n,), dtype=torch.int32, device=dev)
-    if n == 0:
-        return t_out, idx
-    fn = _fn()
-    with torch.cuda.device(dev):
-        err = fn(g.data_ptr(), o.data_ptr(), d.data_ptr(), t_out.data_ptr(), idx.data_ptr(), n, t_total,
-                 _cuda.stream_of(dev))
-    _cuda.raise_on(err, NAME)
-    launches["closest"] += 1
-    return t_out, idx
+    _check(g, o, d)
+    out = brute.launch(_fn(), NAME, g, o, d, splits, stats)
+    if o.shape[0]:
+        launches["closest"] += 1
+    return out
+
+
+@torch.no_grad()
+def plucker_closest_per_ray(g: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
+    """The same function by the kernel ``plucker_closest`` replaced (one
+    thread per ray over all T' triangles), for measurement only."""
+    if o.device.type == "cpu":
+        return plucker_closest_plain(g, o, d)
+    if o.device.type != "cuda":
+        raise ValueError(f"plucker_closest_per_ray runs on cuda or cpu tensors, got {o.device}")
+    _check(g, o, d)
+    out = brute.launch_per_ray(_fn_per_ray(), "plucker_closest_per_ray", g, o, d)
+    if o.shape[0]:
+        per_ray_launches["closest"] += 1
+    return out

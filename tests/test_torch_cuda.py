@@ -1,7 +1,7 @@
 """The CUDA kernels (the packet walk and the per-ray walk it replaced, the
 mega and forest walks, the binned walk's block-loop leaf stage and its
-descend round, the Möller–Trumbore and Plücker brute force) vs their
-plain versions, on a CUDA device.
+descend round, the Möller–Trumbore and Plücker brute force and the
+per-ray kernels they replaced) vs their plain versions, on a CUDA device.
 
 The kernels have no CPU mode, so every test here skips without a card.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -31,7 +31,7 @@ import torch
 
 import dod_raytracer_tpu_torch as T
 from dod_raytracer_tpu_torch.mesh import load_mesh_asset, procedural_dragon
-from dod_raytracer_tpu_torch.ops import binned, forest, mega, mt, packet, plucker
+from dod_raytracer_tpu_torch.ops import binned, brute, forest, mega, mt, packet, plucker
 from dod_raytracer_tpu_torch.ops import traverse as ttrav
 from dod_raytracer_tpu_torch.ops.triangle import brute_force_closest
 from dod_raytracer_tpu_torch.shading import _shadow_perm, shadow_rays
@@ -776,21 +776,26 @@ def brute_inputs():
     return torch.from_numpy(tv).cuda(), o, d
 
 
+BRUTE = {  # kernel -> (its module, the packing, its plain version, the wrapper, the per-ray kernel)
+    "mt": (mt, mt.swizzle_tris, mt.mt_closest_plain, mt.mt_closest, mt.mt_closest_per_ray),
+    "plucker": (plucker, plucker.plucker_pack, plucker.plucker_closest_plain, plucker.plucker_closest,
+                plucker.plucker_closest_per_ray),
+}
+
+
 @pytest.mark.parametrize("kernel", ["mt", "plucker"])
 def test_brute_kernels_match_their_plain_versions(brute_inputs, kernel):
     """Each brute-force kernel on the card against its plain version on
-    the card and on the CPU, bit for bit; Möller–Trumbore also against the
-    torch brute force."""
+    the card and on the CPU and the per-ray kernel it replaced, bit for
+    bit; Möller–Trumbore also against the torch brute force."""
     verts, o, d = brute_inputs
-    module, pack, plain = {"mt": (mt, mt.swizzle_tris, mt.mt_closest_plain),
-                           "plucker": (plucker, plucker.plucker_pack, plucker.plucker_closest_plain)}[kernel]
-    wrapper = mt.mt_closest if kernel == "mt" else plucker.plucker_closest
+    module, pack, plain, wrapper, per_ray = BRUTE[kernel]
     g = pack(verts)
     assert torch.equal(g.cpu(), pack(verts.cpu()))  # the packing is the same bits on both devices
     before = module.launches["closest"]
     got = wrapper(g, o, d)
     assert module.launches["closest"] == before + 1
-    refs = [plain(g, o, d), plain(g.cpu(), o.cpu(), d.cpu())]
+    refs = [plain(g, o, d), plain(g.cpu(), o.cpu(), d.cpu()), per_ray(g, o, d)]
     if kernel == "mt":
         refs.append(brute_force_closest(verts, o, d))
     assert int(torch.isfinite(refs[0][0]).sum()) > N // 4
@@ -801,9 +806,11 @@ def test_brute_kernels_match_their_plain_versions(brute_inputs, kernel):
 
 def test_brute_wrappers_reject_bad_inputs(brute_inputs):
     verts, o, d = brute_inputs
-    before = dict(mt.launches), dict(plucker.launches)
+    before = [dict(m.launches) for m in (mt, plucker)] + [dict(m.per_ray_launches) for m in (mt, plucker)]
     soa, g = mt.swizzle_tris(verts), plucker.plucker_pack(verts)
-    for wrapper, packed, cut in ((mt.mt_closest, soa, soa[:, :100]), (plucker.plucker_closest, g, g[..., :100])):
+    for wrapper, packed, cut in ((mt.mt_closest, soa, soa[:, :100]), (plucker.plucker_closest, g, g[..., :100]),
+                                 (mt.mt_closest_per_ray, soa, soa[:, :100]),
+                                 (plucker.plucker_closest_per_ray, g, g[..., :100])):
         with pytest.raises(ValueError):
             wrapper(cut.contiguous(), o, d)  # not a multiple of the triangle tile
         with pytest.raises(ValueError):
@@ -812,4 +819,133 @@ def test_brute_wrappers_reject_bad_inputs(brute_inputs):
             wrapper(packed, o.double(), d)
         with pytest.raises(ValueError):
             wrapper(packed, o[:, :2].contiguous(), d)
-    assert (dict(mt.launches), dict(plucker.launches)) == before
+    for wrapper, packed in ((mt.mt_closest, soa), (plucker.plucker_closest, g)):
+        for count in (0, packed.shape[-1] // brute.TILE + 1):
+            with pytest.raises(ValueError, match="splits"):
+                wrapper(packed, o, d, splits=count)
+        with pytest.raises(TypeError):
+            wrapper(packed, o, d, stats=torch.zeros((2, 4), dtype=torch.int32, device="cuda"))
+        with pytest.raises(ValueError):
+            wrapper(packed, o, d, stats=torch.zeros((2, 3), dtype=torch.int64, device="cuda"))
+    after = [dict(m.launches) for m in (mt, plucker)] + [dict(m.per_ray_launches) for m in (mt, plucker)]
+    assert after == before
+
+
+BRUTE_CASES = ["tie", "n1", "n5", "n255", "n257", "n16384", "n65536", "miss", "zero_dir", "inside", "dragon"]
+
+
+@pytest.fixture(scope="module")
+def brute_meshes():
+    """The teapot and the 40k-triangle dragon, (T, 3, 3) float32 numpy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return load_mesh_asset("teapot")[0], procedural_dragon(40000)[0]
+
+
+def _aimed(tv, n, rng, lo=-6.0, hi=6.0):
+    """n rays from a box, the first half aimed at triangle centroids."""
+    o = (lo + rng.random((n, 3)) * (hi - lo)).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    aim = tv[rng.integers(0, tv.shape[0], n // 2)].mean(axis=1)
+    d[: n // 2] = aim - o[: n // 2]
+    return o, d
+
+
+def _brute_case(case, meshes):
+    """(verts, o, d, ray count whose hits must be > 0) on the card.
+    'tie': the teapot twice, the copy 6,400 triangles on, so any split of
+    its 12,800 columns into 2 or 4 puts every copy in another split and
+    every hit is a bit-equal tie across a boundary; 'nK': K rays at the
+    teapot; 'miss': rays that miss everything; 'zero_dir': half the rays
+    with a zero direction; 'inside': origins inside the teapot's body;
+    'dragon': the 40k-triangle dragon."""
+    tv, dv = meshes
+    rng = np.random.default_rng(BRUTE_CASES.index(case))
+    verts, n = tv, N
+    if case.startswith("n"):
+        n = int(case[1:])
+    if case == "tie":
+        verts = np.concatenate([tv, np.zeros((6400 - tv.shape[0], 3, 3), np.float32), tv])
+    if case == "dragon":
+        verts = dv
+        lo, hi = dv.reshape(-1, 3).min(0), dv.reshape(-1, 3).max(0)
+        o, d = _aimed(dv, n, rng, lo - 0.5 * (hi - lo), hi + 0.5 * (hi - lo))
+    elif case == "inside":
+        o = (np.array([0.0, 1.5, 0.0]) + (rng.random((n, 3)) - 0.5)).astype(np.float32)
+        d = rng.standard_normal((n, 3)).astype(np.float32)
+    elif case == "miss":
+        o = (np.array([20.0, 20.0, 20.0]) + rng.random((n, 3))).astype(np.float32)
+        d = np.tile(np.array([[0.0, 1.0, 0.0]], np.float32), (n, 1))
+    else:
+        o, d = _aimed(tv, n, rng)
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    if case == "zero_dir":
+        d[1::2] = 0.0
+    return [torch.from_numpy(np.ascontiguousarray(x, np.float32)).cuda() for x in (verts, o, d)]
+
+
+@pytest.mark.parametrize("case", BRUTE_CASES)
+@pytest.mark.parametrize("kernel", ["mt", "plucker"])
+def test_brute_split_kernels_cases(brute_meshes, kernel, case):
+    """The split kernels at the rule's split count, at 1, 2 and one split a
+    tile, against the plain version, the per-ray kernel and (Möller–
+    Trumbore) the torch brute force, bit for bit."""
+    verts, o, d = _brute_case(case, brute_meshes)
+    _, pack, plain, wrapper, per_ray = BRUTE[kernel]
+    g = pack(verts)
+    refs = {"plain": plain(g, o, d), "per_ray": per_ray(g, o, d)}
+    if kernel == "mt":
+        refs["brute_force"] = brute_force_closest(verts, o, d)
+    t_ref, idx_ref = refs["plain"]
+    hit = torch.isfinite(t_ref)
+    for count in dict.fromkeys([None, 1, 2, g.shape[-1] // brute.TILE]):
+        got = wrapper(g, o, d, splits=count)
+        for name, ref in refs.items():
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (count, name)
+    assert bool((idx_ref[~hit] == 0).all())
+    if case == "miss":
+        assert not hit.any()
+    elif o.shape[0] >= 32:
+        assert int(hit.sum()) > o.shape[0] // 8
+    if case == "tie":
+        assert bool((idx_ref[hit] < 6400).all())  # the original wins every tie
+    if case == "zero_dir":
+        assert not hit[1::2].any()
+
+
+def _scanned(g):
+    """The triangles a split kernel scans: each tile up to its last column
+    with a non-zero row."""
+    nz = (g.reshape(-1, g.shape[-1]) != 0).any(0).reshape(-1, brute.TILE)
+    cols = torch.arange(1, brute.TILE + 1, device=g.device)
+    return int(torch.where(nz, cols, 0).amax(1).sum())
+
+
+@pytest.mark.parametrize("kernel", ["mt", "plucker"])
+def test_brute_launch_counts_and_stats_build(brute_inputs, kernel):
+    """One count per wrapper call, however many launches it makes (fill,
+    split kernel, unpack), and none for 0 rays; the stats build gives the
+    same bits at any split count and the same counts: every pair of a ray
+    and a scanned triangle once, every warp-step once, the same stages."""
+    verts, o, d = brute_inputs
+    module, pack, _, wrapper, per_ray = BRUTE[kernel]
+    g = pack(verts)
+    before, per_before = module.launches["closest"], module.per_ray_launches["closest"]
+    ref = wrapper(g, o, d, splits=1)
+    wrapper(g, o, d, splits=5)
+    wrapper(g, o[:0], d[:0])
+    assert module.launches["closest"] == before + 2
+    per_ray(g, o, d)
+    assert module.per_ray_launches["closest"] == per_before + 1 and module.launches["closest"] == before + 2
+    scanned = _scanned(g)
+    assert scanned == verts.shape[0]
+    counts = []
+    for count in (1, 5):
+        stats = torch.zeros((2, 4), dtype=torch.int64, device="cuda")
+        got = wrapper(g, o, d, splits=count, stats=stats)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        steps, pairs = stats.tolist()
+        assert sum(pairs) == N * scanned and sum(steps) == -(-N // 32) * scanned
+        assert pairs[3] >= int(torch.isfinite(ref[0]).sum()) > 0
+        counts.append((steps, pairs))
+    assert counts[0] == counts[1]
