@@ -110,11 +110,45 @@ Phases, each printed with its elapsed seconds as it ends:
      all four walks per bounce with the bounce sort on and off (as phase
      6); the tile's binned walk, device rounds against host-driven rounds,
      and the block-loop and round kernels' entries over its launches (as
-     phase 8); then the ``kernels`` JSON line;
+     phase 8);
  16. one profiled flagship frame: device time by kernel, the traversal
      kernels' share of it, and the device's idle share, as one ``profile``
      line;
- 17. the result line ``{"ok": true, "device": {...}}``.
+ 17. the dragon vertex-gradient frame of ``bench.py --grad``: the flagship
+     frame at 1920x1080 with remat_bounces, each 262,144-ray tile giving
+     sum(render_rays(...) ** 2) (its padding rays left out) and the
+     vertex grads accumulating over the tiles; one warm and one timed
+     frame: its seconds, its ratio to phase 11's forward frame, its peak
+     allocated memory, and the launches of every kernel in the forward
+     and in the backward (the backward must launch none); then one tile
+     with remat_bounces on and off (values to rtol 1e-5, grads by
+     tests/test_grad.py:168-205's rule) and the peak memory of each, and
+     one tile's backward profiled (device time by kernel, idle share);
+ 18. the card against the CPU: loss_and_param_grads for spheres, lights
+     and triangles on the teapot at 64x32 with 3 bounces (the frames
+     within the golden tolerance, the loss to CARD_CPU_LOSS_RTOL, each
+     leaf's grads to a relative L1 distance under CARD_CPU_L1, and in
+     the vertex and normal leaves at most CARD_CPU_SHARE of elements off
+     by more than rtol 1e-3: the card's torch ops round otherwise than the
+     CPU's, a borderline hit can flip over the mirror bounces, and its
+     gathers' backward accumulates with atomics); on the same frame
+     the vertex grads through the Möller–Trumbore and Plücker kernels
+     (brute_threshold=6320) against the kd path's, to rtol 1e-4 (atol
+     1e-7, tests/test_grad.py:95-122) but for the elements that the
+     shared-edge excuse of the parity rules allows (EDGE_SHARE of the
+     rays, each reaching at most one triangle a bounce on either path);
+     each kernel launched in the forward and none in the backward;
+ 19. the teapot fit of BASELINE config 3: ``train.fit`` at 1024x1024 with
+     remat_bounces, FIT_STEPS Adam steps of FIT_PARAMS from colors and
+     intensities perturbed from FIT_SEED towards the unperturbed frame:
+     seconds a step, and the loss must fall; then one ``sgd_step`` of the
+     dragon's vertices along phase 17's grads (no coordinate moves more
+     than SGD_MAX_STEP): the kd blocks must equal ``refresh_kd_blocks`` of
+     the new vertices, and the next flagship frame must be finite;
+     the ``grad`` line, the card line and the ``kernels`` JSON line (each
+     path's kernels with their launches on the gradient path, forward and
+     backward);
+ 20. the result line ``{"ok": true, "device": {...}}``.
 
 Parity rules.  Against the plain walks, and between the per-ray kernels
 (the per-ray packet, mega and forest walks, the binned walk), the outputs
@@ -202,6 +236,20 @@ U8_TOLERANCE = 0.01  # golden tolerance: fraction of u8 channels off by > 1
 TIMING_REPS = 20  # CUDA-event launches per timing, after 2 warm
 BOUNCE_REPS = 3  # the same, per bounce of a tile's render, after 1 warm
 SORT_REPS = 3  # frames each with sort_bounces on and off, in turns
+# card against CPU grads (phase 18).  Their frames differ in rounding (CUDA's and the CPU's torch
+# ops), and at 3 mirror bounces a borderline hit can flip: one pixel of the 64x32 frame on an H100
+# (PERF.md §6), which moved the loss by 3.4e-4 and the sphere grads by up to 0.2% (L1).
+# So: the frames within the golden tolerance, the loss to this rtol, each leaf's grads to this
+# relative L1 distance, and in leaves of at least CARD_CPU_ELEMENTS elements (vertices, normals) at
+# most CARD_CPU_SHARE of elements off by more than rtol 1e-3 (atol 1e-6 of the leaf's largest grad)
+CARD_CPU_LOSS_RTOL = 1e-3
+CARD_CPU_L1 = 1e-2
+CARD_CPU_ELEMENTS = 1000
+CARD_CPU_SHARE = 1e-3
+FIT_PARAMS = ("spheres.color", "mesh_colors", "lights.intensity")  # phase 19, BASELINE config 3
+FIT_STEPS = 5
+FIT_SEED = 0  # the start's colors and intensities: the truth's times U(0.7, 1.3) from this seed
+SGD_MAX_STEP = 1e-4  # the dragon's sgd_step moves no vertex coordinate further than this
 
 _T0 = time.perf_counter()
 
@@ -260,6 +308,247 @@ def u8_off(quantize_u8, a, b) -> float:
     """Fraction of u8 channels of two frames that differ by more than 1."""
     diff = quantize_u8(a).astype(int) - quantize_u8(b).astype(int)
     return float((abs(diff) > 1).mean())
+
+
+def device_ms(torch, prof) -> dict:
+    """Device milliseconds by kernel name of a ``torch.profiler`` run."""
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host-side op records repeat their kernels' device time
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3
+    return out
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    """total += counts, kernel by kernel and mode by mode."""
+    for k, modes in counts.items():
+        for m, n in modes.items():
+            total.setdefault(k, {}).setdefault(m, 0)
+            total[k][m] += n
+    return total
+
+
+def launched(counts: dict) -> dict:
+    """The kernels and modes of ``counts`` that launched at least once."""
+    return {k: {m: n for m, n in modes.items() if n} for k, modes in counts.items() if any(modes.values())}
+
+
+def grad_close(g_ref, g, rtol: float, atol: float) -> dict:
+    """tests/test_grad.py:168-205's comparison of two gradients: the share
+    of elements not close (rtol, atol) and the relative L1 distance."""
+    import torch
+
+    close = torch.isclose(g, g_ref, rtol=rtol, atol=atol)
+    return {"elements": g.numel(), "off": int((~close).sum()), "share_off": float((~close).float().mean()),
+            "rel_l1": float((g - g_ref).abs().sum() / g_ref.abs().sum().clamp_min(1e-30)),
+            "max_abs_ref": float(g_ref.abs().max())}
+
+
+def grad_phases(torch, dev, dscene, fcfg, flag_s: float, reset_counts, read_counts) -> dict:
+    """Phases 17-19, the gradient path, -> their numbers (see the module
+    docstring).  Any failed check raises."""
+    from dod_raytracer_tpu_torch import Config, default_scene, render_image
+    from dod_raytracer_tpu_torch.accel.kdtree import refresh_kd_blocks
+    from dod_raytracer_tpu_torch.grad import loss_and_param_grads, merge_params, mse_loss, render_for_grad, sgd_step
+    from dod_raytracer_tpu_torch.render import frame_rays, render_rays
+    from dod_raytracer_tpu_torch.train import fit
+
+    import numpy as np
+
+    out = {}
+
+    # ---- 17. the dragon vertex-gradient frame (bench.py --grad) ----
+    gcfg = dataclasses.replace(fcfg, remat_bounces=True)
+    o_f, d_f, raw_f, n_f, gtile = frame_rays(gcfg, dev)
+
+    def tile_loss(verts, start, cfg):
+        """sum(render_rays(...) ** 2) of the tile at ``start``, its padding
+        rays left out, with the vertices ``verts``."""
+        s = dataclasses.replace(dscene, triangles=dataclasses.replace(dscene.triangles, verts=verts))
+        sl = slice(start, start + gtile)
+        return torch.sum(render_rays(s, o_f[sl], d_f[sl], raw_f[sl], cfg)[:n_f - start] ** 2)
+
+    def grad_frame():
+        """-> (loss, verts.grad accumulated over the tiles, forward counts,
+        backward counts)."""
+        verts = dscene.triangles.verts.detach().clone().requires_grad_(True)
+        total, fwd, bwd = 0.0, {}, {}
+        for start in range(0, o_f.shape[0], gtile):
+            reset_counts()
+            val = tile_loss(verts, start, gcfg)
+            add_counts(fwd, read_counts())
+            reset_counts()
+            val.backward()
+            add_counts(bwd, read_counts())
+            total += float(val.detach())
+        return total, verts.grad, fwd, bwd
+
+    wall_s(torch, grad_frame)
+    torch.cuda.reset_peak_memory_stats()
+    gsec, (gloss, gverts, gfwd, gbwd) = wall_s(torch, grad_frame)
+    gpeak = torch.cuda.max_memory_allocated()
+    check(all(gfwd["packet_traverse"][m] > 0 for m in ("closest", "any_hit")),
+          f"grad frame: the packet walk did not launch in the forward: {gfwd}")
+    check(not launched(gbwd), f"grad frame: kernels launched in the backward: {launched(gbwd)}")
+    check(math.isfinite(gloss) and bool(torch.isfinite(gverts).all()), "grad frame: non-finite loss or grads")
+    check(float(gverts.abs().max()) > 0, "grad frame: the vertex grads are all zero")
+    out["grad_frame"] = dict(seconds=gsec, fwd_frame_seconds=flag_s, ratio_to_forward=gsec / flag_s,
+                             peak_bytes=gpeak, tile=gtile, tiles=o_f.shape[0] // gtile, loss=gloss,
+                             launches_forward=launched(gfwd), launches_backward=launched(gbwd))
+    log(f"phase 17 dragon vertex-gradient frame (1920x1080, remat_bounces, {gtile}-ray tiles): fwd+bwd "
+        f"{gsec:.3f} s after one warm frame, {gsec / flag_s:.3f} x phase 11's forward frame ({flag_s:.3f} s), "
+        f"peak {gpeak / 2**30:.2f} GiB allocated; launches in the forward {json.dumps(launched(gfwd))}, "
+        f"in the backward {json.dumps(launched(gbwd))}; loss {gloss:.6e}, max |grad| "
+        f"{float(gverts.abs().max()):.4g}")
+
+    # one tile with remat_bounces on and off
+    tile = {}
+    for remat in (True, False):
+        verts = dscene.triangles.verts.detach().clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sec, val = wall_s(torch, lambda: tile_loss(verts, 0, dataclasses.replace(gcfg, remat_bounces=remat)))
+        bsec = wall_s(torch, val.backward)[0]
+        tile[remat] = dict(value=float(val.detach()), grad=verts.grad, fwd_s=sec, bwd_s=bsec,
+                           peak_bytes=torch.cuda.max_memory_allocated() - base)
+        del val, verts
+    vals = (tile[True]["value"], tile[False]["value"])
+    check(math.isclose(*vals, rel_tol=1e-5), f"one tile: remat on and off give {vals}")
+    rule = grad_close(tile[False]["grad"], tile[True]["grad"], rtol=1e-4, atol=1e-6)
+    check(rule["share_off"] < 1e-3 and rule["rel_l1"] < 1e-3,
+          f"one tile: vertex grads with remat on and off differ: {rule}")
+    out["remat_tile"] = {("on" if r else "off"): {k: v for k, v in t.items() if k != "grad"} for r, t in tile.items()}
+    out["remat_tile"]["grads"] = rule
+    del tile
+    log(f"phase 17 one tile ({gtile} rays) with remat_bounces on and off: {json.dumps(out['remat_tile'])}")
+
+    # where one tile's backward spends its device time
+    from torch.profiler import ProfilerActivity, profile
+
+    verts = dscene.triangles.verts.detach().clone().requires_grad_(True)
+    val = tile_loss(verts, 0, gcfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        bwd_ms = wall_s(torch, val.backward)[0] * 1e3
+    by_name = device_ms(torch, prof)
+    busy = sum(by_name.values())
+    out["backward_profile"] = dict(wall_ms=bwd_ms, device_busy_ms=busy,
+                                   device_idle_share=max(0.0, 1.0 - busy / bwd_ms) if busy else None,
+                                   top=[{"name": k[:90], "ms": v} for k, v in
+                                        sorted(by_name.items(), key=lambda kv: -kv[1])[:10]])
+    del val, verts
+    log(f"phase 17 one tile's backward (remat_bounces), profiled: {json.dumps(out['backward_profile'])}")
+
+    # ---- 18. the card against the CPU ----
+    small = Config.load(os.path.join(ROOT, "config.ini"), Width=64, Height=32, MaxPrims=96, leaf_chunk_lanes=48,
+                        recursion_depth=3)
+    params = ("spheres", "lights", "triangles")
+    cscene = default_scene(seed=0, cfg=small, mesh="teapot").build(small, device="cpu")
+    with torch.no_grad():
+        target = render_for_grad(cscene, small) * 0.8 + 0.02
+    gscene = default_scene(seed=0, cfg=small, mesh="teapot").build(small, device=dev)
+    with torch.no_grad():
+        far = float(((render_for_grad(gscene, small).cpu() - render_for_grad(cscene, small)).abs() > 2e-3)
+                    .float().mean())
+    check(far < U8_TOLERANCE, f"card vs CPU 64x32 frame: {far:.4%} of channels off by > 2e-3")
+    cpu_loss, cpu_grads = loss_and_param_grads(cscene, target, small, params)
+    reset_counts()
+    card_loss, card_grads = loss_and_param_grads(gscene, target.to(dev), small, params)
+    card_counts = launched(read_counts())
+    check(set(card_counts) == {"packet_traverse"}, f"card grads: launches {card_counts}")
+    check(math.isclose(float(card_loss), float(cpu_loss), rel_tol=CARD_CPU_LOSS_RTOL),
+          f"card loss {float(card_loss)} vs CPU {float(cpu_loss)}")
+    vs_cpu = {}
+    for fam in params:
+        for f in dataclasses.fields(cpu_grads[fam]):
+            g_cpu = getattr(cpu_grads[fam], f.name)
+            if g_cpu is None:
+                continue
+            g = getattr(card_grads[fam], f.name).cpu()
+            check(bool(torch.isfinite(g).all()), f"card grads {fam}.{f.name} are not finite")
+            res = grad_close(g_cpu, g, rtol=1e-3, atol=1e-6 * float(g_cpu.abs().max()))
+            vs_cpu[f"{fam}.{f.name}"] = res
+            check(res["rel_l1"] < CARD_CPU_L1 and (g.numel() < CARD_CPU_ELEMENTS or res["share_off"] <= CARD_CPU_SHARE),
+                  f"card grads {fam}.{f.name} vs CPU: {res}")
+    out["card_vs_cpu"] = dict(loss=[float(card_loss), float(cpu_loss)], frame_channels_off=far, grads=vs_cpu,
+                              launches=card_counts)
+    log(f"phase 18 teapot 64x32, 3 bounces: {far:.4%} of the frame's channels off the CPU's by > 2e-3; loss on "
+        f"the card {float(card_loss):.9e}, on the CPU {float(cpu_loss):.9e}; grads vs the CPU's "
+        f"{json.dumps(vs_cpu)}; launches {json.dumps(card_counts)}")
+
+    # the vertex grads through the brute-force kernels against the kd path's
+    kd_verts = card_grads["triangles"].verts
+    edge_elems = math.ceil(EDGE_SHARE * small.Width * small.Height) * 2 * small.recursion_depth * 9
+    out["brute_vs_kd"] = {}
+    for backend, kernel in (("pallas", "mt_closest"), ("plucker", "plucker_closest")):
+        bcfg_ = dataclasses.replace(small, brute_threshold=gscene.n_triangles, triangle_backend=backend)
+        fwd, bwd = {}, {}
+        dv = {"triangles.verts": gscene.triangles.verts.detach().clone().requires_grad_(True)}
+        reset_counts()
+        loss = mse_loss(merge_params(gscene, dv), target.to(dev), bcfg_)
+        add_counts(fwd, read_counts())
+        reset_counts()
+        loss.backward()
+        add_counts(bwd, read_counts())
+        check(set(launched(fwd)) == {kernel}, f"{backend} grads: forward launches {launched(fwd)}")
+        check(not launched(bwd), f"{backend} grads: backward launches {launched(bwd)}")
+        res = grad_close(kd_verts, dv["triangles.verts"].grad, rtol=1e-4, atol=1e-7)
+        check(res["off"] <= edge_elems, f"{backend} vertex grads vs the kd path's: {res} (at most {edge_elems} off)")
+        out["brute_vs_kd"][kernel] = dict(res, launches_forward=fwd[kernel]["closest"],
+                                          launches_backward=0, edge_elements_allowed=edge_elems)
+    log(f"phase 18 vertex grads through the brute-force kernels vs the kd path's: {json.dumps(out['brute_vs_kd'])}")
+    del cscene, gscene, cpu_grads, card_grads, kd_verts
+
+    # ---- 19. the teapot fit (BASELINE config 3) ----
+    tcfg = Config.load(os.path.join(ROOT, "config.ini"), Width=1024, Height=1024, MaxPrims=96,
+                       leaf_chunk_lanes=48, remat_bounces=True)
+    truth = default_scene(seed=0, cfg=tcfg, mesh="teapot").build(tcfg, device=dev)
+    with torch.no_grad():
+        target = render_for_grad(truth, tcfg)
+    rng = np.random.default_rng(FIT_SEED)
+
+    def perturb(x):
+        return (x * torch.from_numpy(rng.uniform(0.7, 1.3, tuple(x.shape)).astype(np.float32)).to(dev))
+
+    start = dataclasses.replace(
+        truth, spheres=dataclasses.replace(truth.spheres, color=perturb(truth.spheres.color).clamp(0.0, 1.0)),
+        mesh_colors=perturb(truth.mesh_colors).clamp(0.0, 1.0),
+        lights=dataclasses.replace(truth.lights, intensity=perturb(truth.lights.intensity)))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    fsec, (_, losses) = wall_s(torch, lambda: fit(start, target, tcfg, FIT_PARAMS, steps=FIT_STEPS, lr=0.05,
+                                                  log_every=1))
+    fit_counts = launched(read_counts())
+    check(len(losses) == FIT_STEPS and all(math.isfinite(v) for v in losses), f"fit losses {losses}")
+    check(losses[-1] < losses[0], f"fit: the loss did not fall from step 0 to step {FIT_STEPS - 1}: {losses}")
+    out["fit"] = dict(seconds_per_step=fsec / FIT_STEPS, losses=losses, peak_bytes=torch.cuda.max_memory_allocated(),
+                      launches=fit_counts)
+    log(f"phase 19 teapot fit, 1024x1024, {FIT_STEPS} Adam steps of {FIT_PARAMS}: {fsec / FIT_STEPS:.3f} s a step, "
+        f"losses {losses}, peak {out['fit']['peak_bytes'] / 2**30:.2f} GiB allocated, launches {json.dumps(fit_counts)}")
+    del truth, start, target
+
+    # one sgd_step of the dragon's vertices, then a frame
+    lr = SGD_MAX_STEP / float(gverts.abs().max())
+    moved = sgd_step(dscene, {"triangles.verts": gverts}, lr)
+    ref = refresh_kd_blocks(dscene.kd, moved.triangles.verts)
+    check(not torch.equal(moved.triangles.verts, dscene.triangles.verts), "sgd_step did not move the vertices")
+    check(not torch.equal(moved.kd.block_tris, dscene.kd.block_tris), "sgd_step did not refresh block_tris")
+    for f in ("block_tris", "block_g", "block_aabb"):
+        check(torch.equal(getattr(moved.kd, f), getattr(ref, f)), f"sgd_step: {f} differs from refresh_kd_blocks")
+    msec, mimg = wall_s(torch, lambda: render_image(moved, fcfg, device=dev))
+    check(tuple(mimg.shape) == (fcfg.Height, fcfg.Width, 3) and bool(torch.isfinite(mimg).all()),
+          "the frame after sgd_step is not finite")
+    out["sgd_step"] = dict(lr=lr, max_step=SGD_MAX_STEP, frame_seconds=msec)
+    log(f"phase 19 dragon sgd_step on triangles.verts (lr {lr:.4g}: at most {SGD_MAX_STEP} a coordinate): "
+        f"block_tris, block_g and block_aabb equal refresh_kd_blocks of the new vertices; the next frame "
+        f"{msec:.3f} s, finite, mean {float(mimg.mean()):.4f}")
+    return out
 
 
 def main(device: str = "cuda") -> int:
@@ -1496,15 +1785,7 @@ def main(device: str = "cuda") -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_wall_ms = wall_s(torch, lambda: render_image(dscene, fcfg, device=dev))[0] * 1e3
     launches_per_frame = sum(packet.launches.values())
-    dev_ms = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side op records repeat their kernels' device time
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            dev_ms[e.key] = dev_ms.get(e.key, 0.0) + us / 1e3
+    dev_ms = device_ms(torch, prof)
     busy = sum(dev_ms.values())
     if busy > 0:
         ours = sum(v for k, v in dev_ms.items() if "PacketNodes" in k)  # kd_warp.cuh warp_walk_kernel<PacketNodes>
@@ -1520,12 +1801,25 @@ def main(device: str = "cuda") -> int:
         print(json.dumps({"profile": "not measured: the profiler recorded no device time"}), flush=True)
     log("phase 16 profile")
 
+    # ---- 17-19. the gradient path ----
+    grads = grad_phases(torch, dev, dscene, fcfg, flag_s, reset_counts, read_counts)
+    print(json.dumps({"grad": grads}), flush=True)
+    gf = grads["grad_frame"]
+    for e in kernels:  # each kernel's launches on the gradient path, forward / backward
+        if e["name"] in ("packet_traverse[closest,dragon]", "packet_traverse[any_hit,dragon]"):
+            mode = e["name"].split("[")[1].split(",")[0]
+            e["grad_frame_launches"] = {"forward": gf["launches_forward"]["packet_traverse"][mode], "backward": 0}
+        elif e["name"].split("[")[0] in grads["brute_vs_kd"]:
+            e["grad_launches"] = {"forward": grads["brute_vs_kd"][e["name"].split("[")[0]]["launches_forward"],
+                                  "backward": 0, "frame": "teapot 64x32, 3 bounces"}
+
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"done: teapot frame {frame_s:.3f} s, dragon flagship frame {flag_s:.3f} s, dragon forest frame "
         f"{forest_s:.3f} s, dragon binned frame {dbin_s:.3f} s, teapot mega frame {mega_s:.3f} s, "
         f"teapot binned frame {binned_s:.3f} s on {card}; binned frames with sort_bounces on and off: "
-        f"{json.dumps(binned_sorts)}")
+        f"{json.dumps(binned_sorts)}; dragon fwd+bwd frame {gf['seconds']:.3f} s ({gf['ratio_to_forward']:.3f} x "
+        f"forward), teapot fit {grads['fit']['seconds_per_step']:.3f} s a step")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -73,7 +73,9 @@ class Config:
     # turns on the H100 (chip_smoke.py phases 7, 11 and 12, PERF.md §6).
     # The JAX package sorts on its accelerator for every backend.
     sort_bounces: Optional[bool] = None
-    remat_bounces: bool = False  # not ported (gradients are a later slice)
+    # recompute each bounce in the backward (torch.utils.checkpoint), its
+    # traversal outputs read back, not recomputed (render.render_rays)
+    remat_bounces: bool = False
     bounce_skip: bool = False  # not ported
     # one flattened (L*N,) any-hit walk for the whole shadow pass instead
     # of L sequential N-ray walks — identical visibility bits.  None =

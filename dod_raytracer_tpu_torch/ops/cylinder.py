@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.math import dot, safe_div, safe_sqrt
-from .ray import INF, FamilyHit
+from .ray import INF, FamilyHit, take
 
 
 def _min_non_negative(t_sub, t_add):
@@ -103,8 +103,8 @@ def intersect_cylinders(cyl, o, d, t_max, eps, color_bug: bool = False, n_valid=
     ci = idx // 3  # winning cylinder
     kind = idx % 3  # 0 body, 1 discA, 2 discB
 
-    base_w, axis_w = cyl.base[ci], cyl.axis[ci]
-    r_w, h_w = cyl.radius[ci], cyl.height[ci]
+    base_w, axis_w = take(cyl.base, ci), take(cyl.axis, ci)
+    r_w, h_w = take(cyl.radius, ci), take(cyl.height, ci)
 
     # recompute of the winning candidate's t (same branch as the forward)
     d_dot_a = dot(d, axis_w)
@@ -136,7 +136,7 @@ def intersect_cylinders(cyl, o, d, t_max, eps, color_bug: bool = False, n_valid=
     n_disc = torch.where((d_dot_a > 0.0)[:, None], -axis_w, axis_w)
     normal = torch.where(is_body[:, None], n_body, n_disc)
 
-    color = torch.zeros_like(cyl.color[ci]) if color_bug else cyl.color[ci]
+    color = torch.zeros_like(take(cyl.color, ci)) if color_bug else take(cyl.color, ci)
     return FamilyHit(t=t, normal=normal, color=color)
 
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.math import safe_div
-from .ray import INF, FamilyHit
+from .ray import INF, FamilyHit, take
 
 
 def plane_candidate_t(point, normal, o, d, eps):
@@ -33,13 +33,13 @@ def intersect_planes(planes, o, d, t_max, eps) -> FamilyHit:
     idx = torch.argmin(t_all, dim=1).detach()
     hit = torch.gather(t_all, 1, idx[:, None])[:, 0] < t_max
 
-    p_w = planes.point[idx]
-    n_w = planes.normal[idx]
+    p_w = take(planes.point, idx)
+    n_w = take(planes.normal, idx)
     denom = torch.sum(d * n_w, dim=-1)
     num = torch.sum((p_w - o) * n_w, dim=-1)
     t = safe_div(num, denom, hit)
     t = torch.where(hit, t, INF)
-    return FamilyHit(t=t, normal=n_w, color=planes.color[idx])
+    return FamilyHit(t=t, normal=n_w, color=take(planes.color, idx))
 
 
 def occluded_planes(planes, o, d, t_max, eps) -> torch.Tensor:

@@ -34,6 +34,16 @@ class Hit:
     mask: torch.Tensor  # (N,) bool — True where something was hit
 
 
+def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``, the rows of a primitive table picked by each ray's
+    winner, by ``index_select``.  Its backward adds the rays' grads with
+    atomics; advanced indexing's backward sorts the indices and sums each
+    index's rows serially, which is slow where most rays share a row (a
+    table of a few primitives, or row 0, the clamped index of every ray
+    that misses the mesh)."""
+    return table.index_select(0, idx)
+
+
 def miss_like(n: int, device) -> FamilyHit:
     return FamilyHit(
         t=torch.full((n,), INF, dtype=torch.float32, device=device),

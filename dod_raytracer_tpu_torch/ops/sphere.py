@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.math import dot, safe_sqrt
-from .ray import INF, FamilyHit
+from .ray import INF, FamilyHit, take
 
 
 def sphere_candidate_t(center, radius, o, d):
@@ -58,8 +58,8 @@ def intersect_spheres(spheres, o, d, t_max) -> FamilyHit:
     t_fwd = torch.gather(t_all, 1, idx[:, None])[:, 0]
     hit = t_fwd < t_max
 
-    center_w = spheres.center[idx]
-    radius_w = spheres.radius[idx]
+    center_w = take(spheres.center, idx)
+    radius_w = take(spheres.radius, idx)
     t = _recompute_t(center_w, radius_w, o, d, hit)
     t = torch.where(hit, t, INF)
 
@@ -68,7 +68,7 @@ def intersect_spheres(spheres, o, d, t_max) -> FamilyHit:
     delta = point - center_w
     nrm_sq = torch.clamp_min(dot(delta, delta), 1e-30)
     normal = delta * torch.rsqrt(nrm_sq)[:, None]
-    return FamilyHit(t=t, normal=normal, color=spheres.color[idx])
+    return FamilyHit(t=t, normal=normal, color=take(spheres.color, idx))
 
 
 def occluded_spheres(spheres, o, d, t_max) -> torch.Tensor:

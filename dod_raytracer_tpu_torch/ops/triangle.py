@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.math import cross, dot, safe_div
-from .ray import INF, FamilyHit
+from .ray import INF, FamilyHit, take
 
 
 def _cross(a, b):
@@ -146,16 +146,16 @@ def triangle_hit_attrs(tris, o, d, tri_idx, hit, mesh_colors=None) -> FamilyHit:
     """Hit attributes recomputed from the winning triangle index, with the
     reference's semantics (triangle.cpp:169-174)."""
     idx = torch.clamp(tri_idx, 0, tris.verts.shape[0] - 1).long()
-    tri = tris.verts[idx]  # (N, 3, 3)
+    tri = take(tris.verts, idx)  # (N, 3, 3)
     t, u, v = mt_single(tri, o, d, hit)
     t = torch.where(hit, t, INF)
     w0 = 1.0 - (u + v)
-    nrm = tris.normals[idx]  # (N, 3, 3) rows = AN, BN, CN
+    nrm = take(tris.normals, idx)  # (N, 3, 3) rows = AN, BN, CN
     normal = w0[:, None] * nrm[:, 0, :] + u[:, None] * nrm[:, 1, :] + v[:, None] * nrm[:, 2, :]
     if mesh_colors is None:
         color = torch.zeros_like(normal)
     else:
-        color = mesh_colors[tris.mesh_id[idx].long()]
+        color = take(mesh_colors, take(tris.mesh_id, idx).long())
     return FamilyHit(t=t, normal=normal, color=color)
 
 
@@ -199,8 +199,12 @@ def brute_force_closest(verts, o, d, chunk: int = 2048):
 
 
 def intersect_triangles_brute(tris, mesh_colors, o, d, t_max, chunk: int = 2048) -> FamilyHit:
-    t_best, idx = brute_force_closest(tris.verts.detach(), o, d, chunk)
-    hit = t_best < t_max
+    """Closest hit over all triangles: the brute force picks the winner
+    without gradient (the JAX package's stop_gradient on the vertices and
+    the rays), ``triangle_hit_attrs`` recomputes its hit with gradient."""
+    with torch.no_grad():
+        t_best, idx = brute_force_closest(tris.verts.detach(), o.detach(), d.detach(), chunk)
+        hit = t_best < t_max.detach()
     return triangle_hit_attrs(tris, o, d, idx, hit, mesh_colors)
 
 

@@ -308,13 +308,14 @@ class SceneBuilder:
 
 
 def default_scene(seed: int = 0, cfg=None, num_spheres: int = 16, with_cylinder: bool = True,
-                  mesh: Optional[str] = "teapot") -> SceneBuilder:
+                  mesh: Optional[str] = "dragon") -> SceneBuilder:
     """The reference's hardcoded scene recipe (main.cpp:26-146,283-292) with
     a seeded PRNG replacing ``srand(time(NULL))`` (main.cpp:351).
 
     Same draws in the same order as ``dod_raytracer_tpu.scene.default_scene``,
     so one seed gives both packages the same scene.  ``mesh`` is
-    'teapot' (the default), 'dragon', an OBJ path or None.
+    'dragon' (the default, as in the JAX package), 'teapot', an OBJ path
+    or None.
     """
     rng = np.random.default_rng(seed)
     b = SceneBuilder()

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .intersect import occluded
+from .intersect import occluded, remember
 from .utils.math import sqrt
 
 AMBIENT = 0.2  # main.cpp:158
@@ -81,6 +81,7 @@ def shadow_rays(scene, points, active=None, relevant=None):
     return o.reshape(L * n, 3), ldir.reshape(L * n, 3), dist.reshape(L * n)
 
 
+@torch.no_grad()
 def light_visibility(scene, points, cfg, active=None, relevant=None) -> torch.Tensor:
     """(N, L) bool — canSeeLight (main.cpp:182-219) for all rays x lights.
 
@@ -135,17 +136,22 @@ def light_terms(scene, points, normals, pixel_dirs):
     return diffuse + specular, dist_factor
 
 
-def lighting_factor(scene, points, normals, pixel_dirs, cfg, active=None) -> torch.Tensor:
+def lighting_factor(scene, points, normals, pixel_dirs, cfg, active=None, saved=None) -> torch.Tensor:
     """(N,) scalar lighting factor (getLightingFactor, main.cpp:221-244).
 
     ``pixel_dirs`` is the un-normalized primary direction (parity quirk).
     ``active`` masks rays whose shadow queries are skipped (their
     visibility is forced False).  Pairs with exactly zero Lambert + Phong
     term launch no shadow ray: their visibility is multiplied by zero.
+    Visibility is a step function without gradient (the JAX package's
+    stop_gradient, ``shading.py:214-216``), so the shadow pass gets the
+    points detached; ``saved`` keeps its bits for a bounce's recompute
+    (``intersect.remember``).
     """
     shade, dist_factor = light_terms(scene, points, normals, pixel_dirs)
     relevant = shade.detach() > 0.0  # (N, L)
-    visible = light_visibility(scene, points, cfg, active, relevant)  # (N, L)
+    visible = remember(saved, "visible", lambda: light_visibility(
+        scene, points.detach(), cfg, active, relevant))  # (N, L)
     if active is not None:
         visible = visible & active[:, None]
     per_light = torch.where(visible, shade * dist_factor, 0.0)

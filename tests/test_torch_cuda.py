@@ -949,3 +949,70 @@ def test_brute_launch_counts_and_stats_build(brute_inputs, kernel):
         assert pairs[3] >= int(torch.isfinite(ref[0]).sum()) > 0
         counts.append((steps, pairs))
     assert counts[0] == counts[1]
+
+
+# ---- the gradient path ----
+GRAD_FRAME = dict(Width=32, Height=16, MaxPrims=96, leaf_chunk_lanes=48, recursion_depth=2)
+GRAD_PARAMS = ("spheres", "lights", "triangles")
+
+
+@pytest.fixture(scope="module")
+def grad_scenes():
+    """The teapot recipe on the card and on the CPU, and a target."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from dod_raytracer_tpu_torch.grad import render_for_grad
+
+    cfg = T.Config(**GRAD_FRAME)
+    cpu = T.default_scene(seed=0, cfg=cfg, mesh="teapot").build(cfg, device="cpu")
+    card = T.default_scene(seed=0, cfg=cfg, mesh="teapot").build(cfg, device="cuda")
+    with torch.no_grad():
+        target = render_for_grad(cpu, cfg) * 0.8 + 0.02
+    return cfg, cpu, card, target
+
+
+def test_grads_on_the_card_match_the_cpu(grad_scenes):
+    """loss_and_param_grads on the card (the packet walk, sorted bounces,
+    batched shadows) vs the CPU (the plain walk), by chip_smoke.py phase
+    18's rule: the loss to rtol 1e-3; per leaf, the relative L1 distance
+    under 1e-2, and in leaves of 1,000 or more elements at most 0.1% of
+    elements off by more than rtol 1e-3 (atol 1e-6 of the leaf's largest
+    grad).  The card's torch ops round otherwise than the CPU's (a
+    grazing hit's grads magnify that), a borderline hit can flip over the
+    bounces, and the gathers' backward accumulates with atomics."""
+    from dod_raytracer_tpu_torch.grad import leaves, loss_and_param_grads
+
+    cfg, cpu, card, target = grad_scenes
+    loss_c, grads_c = loss_and_param_grads(cpu, target, cfg, GRAD_PARAMS)
+    loss_g, grads_g = loss_and_param_grads(card, target.cuda(), cfg, GRAD_PARAMS)
+    np.testing.assert_allclose(float(loss_g), float(loss_c), rtol=1e-3)
+    for g_c, g in zip(leaves(grads_c), leaves(grads_g)):
+        g = g.cpu()
+        assert bool(torch.isfinite(g).all())
+        close = torch.isclose(g, g_c, rtol=1e-3, atol=1e-6 * float(g_c.abs().max()))
+        assert g.numel() < 1000 or float((~close).float().mean()) <= 1e-3
+        assert float((g - g_c).abs().sum() / g_c.abs().sum().clamp_min(1e-30)) < 1e-2
+
+
+@pytest.mark.parametrize("path", ["packet", "packet_remat", "mt", "plucker"])
+def test_backward_launches_no_kernel(grad_scenes, path):
+    """The forward of a gradient frame launches its kernels; the backward
+    launches none (remat_bounces reads the traversal outputs back)."""
+    from dod_raytracer_tpu_torch.grad import merge_params, mse_loss
+
+    cfg, _, card, target = grad_scenes
+    cfg = dataclasses.replace(cfg, **{
+        "packet": {}, "packet_remat": {"remat_bounces": True},
+        "mt": {"brute_threshold": card.n_triangles, "triangle_backend": "pallas"},
+        "plucker": {"brute_threshold": card.n_triangles, "triangle_backend": "plucker"}}[path])
+    counts = {"packet": (packet.launches, ("closest", "any_hit")), "mt": (mt.launches, ("closest",)),
+              "plucker": (plucker.launches, ("closest",))}[path.split("_")[0]]
+    verts = card.triangles.verts.detach().clone().requires_grad_(True)
+    before = {m: counts[0][m] for m in counts[1]}
+    loss = mse_loss(merge_params(card, {"triangles.verts": verts}), target.cuda(), cfg)
+    fwd = {m: counts[0][m] - before[m] for m in counts[1]}
+    assert all(n > 0 for n in fwd.values()), fwd
+    after = dict(packet.launches), dict(mt.launches), dict(plucker.launches)
+    loss.backward()
+    assert (dict(packet.launches), dict(mt.launches), dict(plucker.launches)) == after
+    assert bool(torch.isfinite(verts.grad).all()) and float(verts.grad.abs().max()) > 0

@@ -31,6 +31,17 @@ FLAGSHIP = dict(MaxPrims=192, leaf_chunk_lanes=48)
 AT_SCALE = dict(MaxPrims=32, leaf_chunk_lanes=32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite's workers share the
+    CPU, and the plain walks' many small multi-threaded ops slow down many
+    times over when all workers' threads outnumber the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _numpy(obj):
     """A JAX scene's leaves (and static ints) as a nested dict."""
     if dataclasses.is_dataclass(obj):
@@ -169,8 +180,7 @@ def _off(img, ref):
 FLOAT_BOUND = {3: 0.01, 10: 0.031}
 
 
-@pytest.mark.parametrize("depth", sorted(FLOAT_BOUND))
-def test_small_dragon_forest_frame_matches_jax(op_by_op, depth):
+def check_small_dragon_forest_frame(depth):
     """The reference recipe with the 40k dragon, 64x32, through the port's
     forest backend (its plain forest walk on the CPU) vs JAX op by op with
     its gather walk ('xla'; the JAX tests hold forest equal to it).
@@ -183,6 +193,7 @@ def test_small_dragon_forest_frame_matches_jax(op_by_op, depth):
     the golden 1%.  There the u8 half of the golden tolerance (< 1%) holds
     as it is, and the float half is capped at the fixed FLOAT_BOUND; the
     test prints JAX's own jit-vs-op-by-op fractions beside the port's.
+    Run under the ``op_by_op`` fixture.
     """
     tv, tn = tmesh.procedural_dragon(num_tris=40000)
     frame = dict(Width=64, Height=32, ray_tile=2048, recursion_depth=depth, **AT_SCALE)
@@ -206,3 +217,11 @@ def test_small_dragon_forest_frame_matches_jax(op_by_op, depth):
         print(f"depth {depth}: JAX jit vs op by op {_off(jitted, ref)}")
     assert port[0] < FLOAT_BOUND[depth], port
     assert port[1] < 0.01, port
+
+
+# the 10-bounce case is in test_torch_dragon_frame.py: --dist loadfile
+# then runs the two frames, the suite's longest tests, on two workers
+@pytest.mark.parametrize("depth", [3])
+def test_small_dragon_forest_frame_matches_jax(op_by_op, depth):
+    """``check_small_dragon_forest_frame`` at 3 bounces."""
+    check_small_dragon_forest_frame(depth)

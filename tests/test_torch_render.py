@@ -30,6 +30,17 @@ from dod_raytracer_tpu_torch import shading as tsh
 FRAME = dict(Width=64, Height=32, MaxPrims=96, leaf_chunk_lanes=48, ray_tile=2048)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite's workers share the
+    CPU, and the plain walks' many small multi-threaded ops slow down many
+    times over when all workers' threads outnumber the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def assert_golden_tolerance(img, ref):
     """tests/test_render_golden.py:49-54."""
     bad = np.abs(img - ref) > 2e-3
@@ -159,7 +170,7 @@ def test_unported_options_raise(default_pair):
     from dod_raytracer_tpu_torch.camera import primary_rays
 
     o, d, raw = primary_rays(8, 4, device="cpu")
-    for knob in ("remat_bounces", "bounce_skip", "shadow_reverse"):
+    for knob in ("bounce_skip", "shadow_reverse"):
         with pytest.raises(NotImplementedError):
             T.render_rays(tscene, o, d, raw, T.Config(**FRAME, **{knob: True}))
     with pytest.raises(ValueError):

@@ -85,6 +85,17 @@ def test_mesh_free_scene_bit_equal():
     assert_bit_equal(scene_to_numpy(tscene), jax_to_numpy(jscene))
 
 
+def test_default_scene_defaults_to_the_dragon():
+    """default_scene with no mesh gives the dragon in both packages (the
+    JAX package's default, scene.py:280-281): equal arrays, built without
+    the kd tree."""
+    cfg_j, cfg_t = J.Config(use_kdtree=False), T.Config(use_kdtree=False)
+    jscene = J.default_scene(seed=0).build(cfg_j)
+    tscene = T.default_scene(seed=0).build(cfg_t, device="cpu")
+    assert tscene.n_triangles == jscene.n_triangles == tmesh.load_mesh_asset("dragon")[0].shape[0]
+    assert_bit_equal(scene_to_numpy(tscene), jax_to_numpy(jscene))
+
+
 def test_config_keys_defaults_and_ini(tmp_path):
     jf = {f.name: f.default for f in dataclasses.fields(J.Config)}
     tf = {f.name: f.default for f in dataclasses.fields(T.Config)}

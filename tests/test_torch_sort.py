@@ -215,7 +215,7 @@ def test_sort_bounces_default_by_device(teapot_pair, small_dragon):
     assert not trender._sort_bounces(tscene, T.Config(sort_bounces=False), "cuda")
 
 
-@pytest.mark.parametrize("knob", ["remat_bounces", "bounce_skip", "shadow_reverse"])
+@pytest.mark.parametrize("knob", ["bounce_skip", "shadow_reverse"])
 def test_unported_knobs_still_raise(teapot_pair, knob):
     _, tscene = teapot_pair
     o, d, raw = primary_rays(8, 4, device="cpu")
