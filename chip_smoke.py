@@ -144,11 +144,44 @@ Phases, each printed with its elapsed seconds as it ends:
      seconds a step, and the loss must fall; then one ``sgd_step`` of the
      dragon's vertices along phase 17's grads (no coordinate moves more
      than SGD_MAX_STEP): the kd blocks must equal ``refresh_kd_blocks`` of
-     the new vertices, and the next flagship frame must be finite;
-     the ``grad`` line, the card line and the ``kernels`` JSON line (each
-     path's kernels with their launches on the gradient path, forward and
-     backward);
- 20. the result line ``{"ok": true, "device": {...}}``.
+     the new vertices, and the next flagship frame must be finite; the
+     ``grad`` line;
+ 20. the CLI, ``python -m dod_raytracer_tpu_torch.cli`` in a subprocess:
+     the teapot frame of config.ini alone (its own kd shape, MaxPrims=8,
+     leaf_chunk_lanes=8, ray_tile=32768) with ``--profile``, its PNG read
+     back by ``io.read_png`` and held to phase 4's frame (u8 channels off by
+     > 1 under 1%), its trace naming scene_build, render, png_write and the
+     packet kernel; then the flagship dragon from a written ini, held to
+     phase 11's frame; the ``cli`` line;
+ 21. ``checkpoint.TiledRenderJob`` on the flagship scene, 8 tiles of
+     262,144 rays: owner 0 of 2 must leave tiles 0, 2, 4, 6 and no frame;
+     the resume with one owner must launch exactly 4 x 10 closest-hit and
+     4 x 10 any-hit packet walks, and its frame is held to phase 11's; the
+     ``tiled_job`` line (both passes' seconds, the .npy writes' seconds);
+ 22. ``bounce_skip``: the open scene of tests/test_render_golden.py:82-101
+     (teapot, one sphere, one light, no walls) at 1920x1080 with the knob
+     off and on, bit-equal, fewer launches with it on, KNOB_REPS frames
+     each with it on and off, in turns, the bounces skipped per tile; phase 4's frame with it on, bit-equal to phase 4's, then
+     KNOB_REPS frames each with it on and off, in turns; the
+     ``bounce_skip`` line;
+ 23. reversed shadow rays (``shadow_reverse``): on the flagship tile of
+     phase 15 at bounce 0 and bounce 3, the reversed triangle rays
+     (``shading.reversed_rays``) through the packet any-hit walk against
+     the plain walk on the first SHADOW_POINTS points per light (bits
+     equal) and against the torch brute force on DRAGON_BRUTE_RAYS points
+     per light (the edge excuse), timed in turns with the forward rays of
+     the same points, each beside its ``work_bound``; then the teapot and
+     flagship frames with shadow_reverse=True (the dragon sorted by
+     direction bin), each against its forward frame: under 2% of pixels
+     whose largest channel differs by more than 1e-3
+     (tests/test_render_golden.py:199-215) and u8 channels off by > 1
+     under 1%, then KNOB_REPS frames each reversed and forward, in turns;
+     the ``shadow_reverse`` line; then the card line and the
+     ``kernels`` JSON line (each path's kernels with their launches on the
+     gradient path, forward and backward; the packet walk's dragon
+     entries with their launches on phases 20-23's paths, the any-hit one
+     with the reversed rays' times and bounds);
+ 24. the result line ``{"ok": true, "device": {...}}``.
 
 Parity rules.  Against the plain walks, and between the per-ray kernels
 (the per-ray packet, mega and forest walks, the binned walk), the outputs
@@ -189,8 +222,10 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -236,6 +271,7 @@ U8_TOLERANCE = 0.01  # golden tolerance: fraction of u8 channels off by > 1
 TIMING_REPS = 20  # CUDA-event launches per timing, after 2 warm
 BOUNCE_REPS = 3  # the same, per bounce of a tile's render, after 1 warm
 SORT_REPS = 3  # frames each with sort_bounces on and off, in turns
+KNOB_REPS = 2  # frames each with bounce_skip, shadow_reverse on and off, in turns (phases 22, 23)
 # card against CPU grads (phase 18).  Their frames differ in rounding (CUDA's and the CPU's torch
 # ops), and at 3 mirror bounces a borderline hit can flip: one pixel of the 64x32 frame on an H100
 # (PERF.md §6), which moved the loss by 3.4e-4 and the sphere grads by up to 0.2% (L1).
@@ -625,14 +661,14 @@ def main(device: str = "cuda") -> int:
         finally:
             packet.packet_traverse = packet_walk
 
-    def sort_samples(scene, base, reps=SORT_REPS):
-        """Frame seconds with sort_bounces on and off, ``reps`` each, timed
-        in turns (on, off, off, on, on, off, ...) -> {on: [...], off: [...]}."""
+    def sort_samples(scene, base, reps=SORT_REPS, knob="sort_bounces"):
+        """Frame seconds with ``knob`` on and off, ``reps`` each, timed in
+        turns (on, off, off, on, on, off, ...) -> {on: [...], off: [...]}."""
         order = [True, False, False, True] * reps
         out = {True: [], False: []}
-        for sort in order[:2 * reps]:
-            out[sort].append(wall_s(torch, lambda: render_image(
-                scene, dataclasses.replace(base, sort_bounces=sort), device=dev))[0])
+        for on in order[:2 * reps]:
+            out[on].append(wall_s(torch, lambda: render_image(
+                scene, dataclasses.replace(base, **{knob: on}), device=dev))[0])
         return {"on": out[True], "off": out[False]}
 
     def frame_set(scene, base, label, variants):
@@ -700,6 +736,7 @@ def main(device: str = "cuda") -> int:
     log(f"phase 4 teapot frame seconds with sort_bounces on and off, in turns: {json.dumps(teapot_sorts)}")
     frame_s, counts = teapot_frames[0]["default"], teapot_frames[2]["default"]
     img, img_pr = teapot_frames[3], teapot_frames[4]
+    teapot_ref = img  # phase 4's frame, held by phases 20, 22 and 23
     mean = float(img.mean())
     pixels = cfg.Width * cfg.Height
     log(f"phase 4 frames (sort_bounces={sort_default} by default, sort_shadow={_sort_shadow(scene, cfg)}): "
@@ -1601,6 +1638,7 @@ def main(device: str = "cuda") -> int:
     log(f"phase 11 flagship frame seconds with sort_bounces on and off, in turns: {json.dumps(flag_sorts)}")
     flag_s, flag_counts = flag_frames[0]["default"], flag_frames[2]["default"]
     flag_img, flag_img_pr = flag_frames[3], flag_frames[4]
+    flag_ref = flag_img  # phase 11's frame, held by phases 20, 21 and 23
     log(f"phase 11 flagship frames (sort_bounces={sort_default} by default, sort_shadow="
         f"{_sort_shadow(dscene, fcfg)}): seconds {json.dumps(flag_frames[0])}, u8 channels off by > 1 from "
         f"the default frame {json.dumps(flag_frames[1])}, launches {json.dumps(flag_frames[2])}; "
@@ -1812,6 +1850,232 @@ def main(device: str = "cuda") -> int:
         elif e["name"].split("[")[0] in grads["brute_vs_kd"]:
             e["grad_launches"] = {"forward": grads["brute_vs_kd"][e["name"].split("[")[0]]["launches_forward"],
                                   "backward": 0, "frame": "teapot 64x32, 3 bounces"}
+
+    # ---- 20-23. the CLI, the tiled job, bounce_skip, reversed shadow rays ----
+    torch.cuda.empty_cache()  # the CLI's process shares the card
+    import numpy as np
+
+    from dod_raytracer_tpu_torch import SceneBuilder
+    from dod_raytracer_tpu_torch.checkpoint import TiledRenderJob
+    from dod_raytracer_tpu_torch.io import read_png
+    from dod_raytracer_tpu_torch.mesh import load_mesh_asset
+    from dod_raytracer_tpu_torch.shading import reversed_rays
+
+    teapot_u8, flag_u8 = quantize_u8(teapot_ref), quantize_u8(flag_ref)
+
+    def u8_share(a, b) -> float:
+        """Fraction of u8 channels of two quantized frames that differ by more than 1."""
+        return float((np.abs(a.astype(int) - b.astype(int)) > 1).mean())
+
+    def pixel_share(a, b) -> float:
+        """tests/test_render_golden.py:212-215: the share of pixels whose
+        largest channel differs by more than 1e-3."""
+        return float(((a - b).abs().amax(dim=-1) > 1e-3).float().mean())
+
+    new_paths = {}  # the packet walk's launches on this slice's paths
+
+    # ---- 20. the CLI on the card, in a subprocess ----
+    t20 = time.perf_counter()
+
+    def run_cli(label, args, tmp):
+        """``python -m dod_raytracer_tpu_torch.cli`` with ``args`` in a
+        subprocess -> (the seconds it printed, its wall seconds)."""
+        t = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "dod_raytracer_tpu_torch.cli", *args], cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        check(out.returncode == 0, f"{label}: the CLI exited {out.returncode}: {out.stderr[-3000:]}")
+        m = re.search(r"rendered (\d+)x(\d+) in ([0-9.]+)s \(([0-9.]+) Mprimary-rays/s\) -> ", out.stdout)
+        check(m is not None, f"{label}: no 'rendered' line in {out.stdout[-2000:]!r}")
+        return float(m.group(3)), wall
+
+    cli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        png, trace_dir = os.path.join(tmp, "cli.png"), os.path.join(tmp, "trace")
+        sec, wall = run_cli("CLI teapot", ["--config", os.path.join(ROOT, "config.ini"), "--seed", "0", "--output",
+                                           png, "--profile", trace_dir], tmp)
+        got = read_png(png)
+        check(got.shape == teapot_u8.shape, f"CLI teapot PNG shape {got.shape}")
+        off = u8_share(got, teapot_u8)
+        check(off < U8_TOLERANCE, f"CLI teapot frame: {off:.4%} of u8 channels off by > 1 from phase 4's frame")
+        trace = os.path.join(trace_dir, "trace.json")
+        check(os.path.exists(trace), "CLI teapot: --profile wrote no trace.json")
+        named = {n: False for n in ("scene_build", "render", "png_write")}
+        kernels_named = {}
+        with open(trace) as f:  # read in pieces that end at a line end: the trace is large
+            rest = ""
+            for piece in iter(lambda: f.read(1 << 26), ""):
+                text, _, rest = (rest + piece).rpartition("\n")
+                named.update({n: True for n in named if f'"{n}"' in text})
+                for name in re.findall(r'"name":\s*"([^"]*PacketNodes[^"]*)"', text):
+                    kernels_named[name[:100]] = kernels_named.get(name[:100], 0) + 1
+        check(all(named.values()) and kernels_named, f"CLI trace: phases {named}, packet kernels {kernels_named}")
+        cli["teapot"] = dict(seconds=sec, wall_s=wall, u8_off=off, trace_bytes=os.path.getsize(trace),
+                             phases_named=named, packet_kernels_in_trace=kernels_named,
+                             config="config.ini (MaxPrims=8, leaf_chunk_lanes=8, ray_tile=32768), under --profile")
+        new_paths["cli_teapot_trace"] = kernels_named
+        ini = os.path.join(tmp, "dragon.ini")
+        with open(ini, "w") as f:
+            f.write("Width: 1920\nHeight: 1080\nMaxPrims: 192\nleaf_chunk_lanes: 48\nray_tile: 0\n")
+        png = os.path.join(tmp, "dragon.png")
+        sec, wall = run_cli("CLI dragon", ["--config", ini, "--mesh", "dragon", "--seed", "0", "--output", png], tmp)
+        got = read_png(png)
+        off = u8_share(got, flag_u8)
+        check(off < U8_TOLERANCE, f"CLI dragon frame: {off:.4%} of u8 channels off by > 1 from phase 11's frame")
+        cli["dragon"] = dict(seconds=sec, wall_s=wall, u8_off=off, bit_equal=bool((got == flag_u8).all()))
+    cli["phase_s"] = time.perf_counter() - t20
+    print(json.dumps({"cli": cli}), flush=True)
+    log(f"phase 20 CLI in a subprocess on {card}: teapot (config.ini, --profile) rendered in "
+        f"{cli['teapot']['seconds']:.3f} s ({cli['teapot']['wall_s']:.1f} s wall), {cli['teapot']['u8_off']:.4%} "
+        f"of u8 channels off by > 1 from phase 4's frame, trace names {named} and packet kernels "
+        f"{json.dumps(kernels_named)}; dragon rendered in {cli['dragon']['seconds']:.3f} s "
+        f"({cli['dragon']['wall_s']:.1f} s wall), {cli['dragon']['u8_off']:.4%} off from phase 11's frame")
+
+    # ---- 21. the resumable tiled render ----
+    t21 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        first = TiledRenderJob(work, fcfg, tile=262144, owner=0, num_owners=2, device=dev)
+        check(first.num_tiles == 8, f"tiled job: {first.num_tiles} tiles")
+        s_first, res = wall_s(torch, lambda: first.run(dscene))
+        check(res is None and first.done_tiles() == [0, 2, 4, 6],
+              f"tiled job, owner 0 of 2: returned {type(res)}, tiles {first.done_tiles()}")
+        resume = TiledRenderJob(work, fcfg, tile=262144, device=dev)
+        reset_counts()
+        s_resume, tiled = wall_s(torch, lambda: resume.run(dscene))
+        counts = read_counts()
+    check(tiled is not None and tiled.shape == (fcfg.Height, fcfg.Width, 3), "tiled job: no full frame on resume")
+    want = {"closest": 4 * fcfg.recursion_depth, "any_hit": 4 * fcfg.recursion_depth}
+    others = [k for k, modes in counts.items() if k != "packet_traverse" and any(modes.values())]
+    check(counts["packet_traverse"] == want and not others,
+          f"tiled resume launches {counts}, want packet {want} and nothing else")
+    tiled_off = u8_share(quantize_u8(torch.from_numpy(tiled)), flag_u8)
+    check(tiled_off < U8_TOLERANCE, f"tiled frame: {tiled_off:.4%} of u8 channels off by > 1 from phase 11's")
+    tiles = dict(first_s=s_first, resume_s=s_resume, write_s=first.write_seconds + resume.write_seconds,
+                 launches_resume=counts["packet_traverse"], u8_off=tiled_off, tile=262144, tiles=8,
+                 phase_s=time.perf_counter() - t21)
+    new_paths["tiled_resume"] = counts["packet_traverse"]
+    print(json.dumps({"tiled_job": tiles}), flush=True)
+    log(f"phase 21 tiled job on the flagship scene on {card}: owner 0 of 2 rendered tiles 0, 2, 4, 6 in "
+        f"{s_first:.3f} s; the resume rendered 4 tiles in {s_resume:.3f} s, launches {counts['packet_traverse']}; "
+        f".npy writes {tiles['write_s']:.3f} s in all; the frame {tiled_off:.4%} off phase 11's")
+    del tiled
+
+    # ---- 22. bounce_skip ----
+    t22 = time.perf_counter()
+    ocfg = Config(Width=1920, Height=1080, ray_tile=0)  # tests/test_render_golden.py:82-101, at 1080p
+    ob = SceneBuilder()
+    ob.add_mesh(*load_mesh_asset("teapot"))
+    ob.add_sphere((2.5, 0.0, 1.0), 0.8, (0.9, 0.3, 0.2))
+    ob.add_light((0.0, 3.0, -3.0), 3.0)
+    oscene = ob.build(ocfg, device=dev)
+    skip = {}
+    for on in (False, True):
+        c = dataclasses.replace(ocfg, bounce_skip=on)
+        wall_s(torch, lambda: render_image(oscene, c, device=dev))
+        sec, im, cnt = frame(oscene, c, f"open scene, bounce_skip={on}", "packet_traverse")
+        skip[on] = dict(seconds=sec, launches=cnt, img=im)
+    check(torch.equal(skip[True]["img"], skip[False]["img"]), "open scene: bounce_skip changed the frame")
+    check(sum(skip[True]["launches"].values()) < sum(skip[False]["launches"].values()),
+          f"open scene: bounce_skip launched no fewer walks: {skip[True]['launches']} vs {skip[False]['launches']}")
+    open_turns = sort_samples(oscene, ocfg, KNOB_REPS, "bounce_skip")
+    o_s, d_s, raw_s, _, s_tile = frame_rays(ocfg, dev)
+    skipped = []
+    with torch.no_grad():
+        for s0 in range(0, o_s.shape[0], s_tile):
+            reset_counts()
+            render_rays(oscene, o_s[s0:s0 + s_tile], d_s[s0:s0 + s_tile], raw_s[s0:s0 + s_tile],
+                        dataclasses.replace(ocfg, bounce_skip=True))
+            skipped.append(ocfg.recursion_depth - packet.launches["closest"])
+    reset_counts()
+    box_cfg = dataclasses.replace(cfg, bounce_skip=True)
+    box_s, box_img, box_counts = frame(scene, box_cfg, "teapot frame, bounce_skip", "packet_traverse")
+    check(torch.equal(box_img, teapot_ref), "teapot frame: bounce_skip changed phase 4's frame")
+    box_turns = sort_samples(scene, cfg, KNOB_REPS, "bounce_skip")
+    bskip = dict(open_scene={("on" if on else "off"): {k: v for k, v in r.items() if k != "img"}
+                             for on, r in skip.items()},
+                 open_turns=open_turns, open_bounces_skipped_per_tile=skipped, open_tile=s_tile, open_mean=float(skip[True]["img"].mean()),
+                 teapot_seconds=box_s, teapot_launches=box_counts, teapot_phase4_seconds=frame_s,
+                 teapot_turns=box_turns, phase_s=time.perf_counter() - t22)
+    new_paths["bounce_skip"] = {"open_scene_on": skip[True]["launches"], "open_scene_off": skip[False]["launches"],
+                                "teapot_on": box_counts}
+    print(json.dumps({"bounce_skip": bskip}), flush=True)
+    log(f"phase 22 bounce_skip on {card}: open scene 1920x1080 off {skip[False]['seconds']:.3f} s "
+        f"{skip[False]['launches']}, on {skip[True]['seconds']:.3f} s {skip[True]['launches']}, bit-equal; in turns "
+        f"{json.dumps(open_turns)}; "
+        f"bounces skipped per tile {skipped}; phase 4's frame with it {box_s:.3f} s (phase 4: {frame_s:.3f} s), "
+        f"bit-equal, launches {box_counts}; seconds with it on and off, in turns: {json.dumps(box_turns)}")
+    del skip, oscene, box_img
+
+    # ---- 23. reversed shadow rays ----
+    t23 = time.perf_counter()
+    o_all, d_all, raw_all, _, _ = frame_rays(fcfg, dev)
+    tile_rays = [x[tstart:tstart + dtile] for x in (o_all, d_all, raw_all)]
+    del o_all, d_all, raw_all
+    L = dscene.lights.position.shape[0]
+    rev = {}
+    for k, _, (so, sd, st) in bounces(dscene, fcfg, *tile_rays, (0, LATER_BOUNCE), dtile):
+        ro, rd = (x.contiguous() for x in reversed_rays(dscene, sd))  # st: the window, family-blocked pairs killed
+        out = packet_walk(dkd, ro, rd, st, ddepth, True)
+        sel = torch.cat([torch.arange(li * dtile, li * dtile + SHADOW_POINTS, device=dev) for li in range(L)])
+        sub = torch.cat([torch.arange(li * dtile, li * dtile + DRAGON_BRUTE_RAYS, device=dev) for li in range(L)])
+        po, pd, pt = ro[sel], rd[sel], st[sel]
+        plain = traverse_plain(dkd, po, pd, pt, ddepth, True)
+        par = check_any(f"reversed, bounce {k}", "packet_traverse", [x[sel] for x in out],
+                        {"plain": (*plain[1:], po.shape[0])}, dverts, po, pd)
+        par.update(check_any(f"reversed, bounce {k}, {DRAGON_BRUTE_RAYS} points per light", "packet_traverse",
+                             [x[sub] for x in out],
+                             {"brute": (None, brute_any(dverts, ro[sub], rd[sub], st[sub]), sub.numel())},
+                             dverts, ro[sub], rd[sub]))
+        fwd_out = packet_walk(dkd, so, sd, st, ddepth, True)
+        ms = time_turns(torch, {"reversed": lambda: packet_walk(dkd, ro, rd, st, ddepth, True),
+                                "forward": lambda: packet_walk(dkd, so, sd, st, ddepth, True)}, TIMING_REPS)
+        rb = work_bound(per_ray, dkd, (ro, rd, st), ddepth, True, dM * 20)
+        fb = work_bound(per_ray, dkd, (so, sd, st), ddepth, True, dM * 20)
+        rev[f"bounce{k}"] = dict(rays=ro.shape[0], live_rays=int((st >= 0).sum()), occluded=int(out[2].sum()),
+                                 occluded_forward=int(fwd_out[2].sum()),
+                                 bits_differ_from_forward=int((out[2] != fwd_out[2]).sum()),
+                                 reversed_ms=ms["reversed"], forward_ms=ms["forward"],
+                                 reversed_bound=rb, forward_bound=fb, parity=par,
+                                 reversed_warp_stats=packet_stats(dkd, (ro, rd, st), ddepth, True),
+                                 forward_warp_stats=packet_stats(dkd, (so, sd, st), ddepth, True))
+        log(f"phase 23 reversed shadow rays, bounce {k}, {ro.shape[0]} rays of the flagship tile at {tstart} on "
+            f"{card}: in turns reversed {ms['reversed']:.3f} ms/launch (bound {rb['bound_ms']:.4f} ms, "
+            f"{rb['bound_by']}), forward {ms['forward']:.3f} ms (bound {fb['bound_ms']:.4f} ms, {fb['bound_by']}); "
+            f"any-hit bits equal to the plain walk's on {po.shape[0]} rays; occluded {int(out[2].sum())} reversed, "
+            f"{int(fwd_out[2].sum())} forward")
+        del ro, rd, out, fwd_out, plain, po, pd, pt
+    del tile_rays
+    rframes = {}
+    for label, sc, base, ref in (("teapot", scene, cfg, teapot_ref), ("dragon", dscene, fcfg, flag_ref)):
+        rc = dataclasses.replace(base, shadow_reverse=True)
+        wall_s(torch, lambda: render_image(sc, rc, device=dev))
+        sec, im, cnt = frame(sc, rc, f"{label} frame, shadow_reverse", "packet_traverse")
+        px, u8 = pixel_share(im, ref), u8_off(quantize_u8, im, ref)
+        check(px < 0.02 and u8 < U8_TOLERANCE,
+              f"{label} shadow_reverse frame: {px:.4%} of pixels off by > 1e-3, {u8:.4%} of u8 channels by > 1")
+        rframes[label] = dict(seconds=sec, forward_seconds=frame_s if label == "teapot" else flag_s,
+                              launches=cnt, pixels_off=px, u8_off=u8, sort_shadow=_sort_shadow(sc, rc),
+                              turns=sort_samples(sc, base, KNOB_REPS, "shadow_reverse"))
+        del im
+    rev["frames"] = rframes
+    rev["phase_s"] = time.perf_counter() - t23
+    new_paths["shadow_reverse_frames"] = {k: v["launches"] for k, v in rframes.items()}
+    print(json.dumps({"shadow_reverse": rev}), flush=True)
+    log(f"phase 23 shadow_reverse frames on {card}: " + "; ".join(
+        f"{k} {v['seconds']:.3f} s (forward {v['forward_seconds']:.3f} s, sort_shadow={v['sort_shadow']}), "
+        f"{v['pixels_off']:.4%} of pixels off by > 1e-3, {v['u8_off']:.4%} of u8 channels by > 1, launches "
+        f"{v['launches']}; seconds reversed (on) and forward (off), in turns: {json.dumps(v['turns'])}"
+        for k, v in rframes.items()))
+    for e in kernels:  # the packet walk's entries gain this slice's paths
+        if e["name"] == "packet_traverse[any_hit,dragon]":
+            e["reversed_shadow"] = {b: {key: rev[b][key] for key in ("rays", "live_rays", "reversed_ms", "forward_ms")}
+                                    | {"bound_ms": rev[b]["reversed_bound"]["bound_ms"],
+                                       "bound_by": rev[b]["reversed_bound"]["bound_by"],
+                                       "forward_bound_ms": rev[b]["forward_bound"]["bound_ms"]}
+                                    for b in ("bounce0", f"bounce{LATER_BOUNCE}")}
+            e["reversed_shadow"]["launches_per_frame"] = rframes["dragon"]["launches"]["any_hit"]
+        if e["name"].startswith("packet_traverse[") and e["name"].endswith(",dragon]"):
+            e["new_paths"] = new_paths
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

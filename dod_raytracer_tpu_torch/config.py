@@ -76,7 +76,9 @@ class Config:
     # recompute each bounce in the backward (torch.utils.checkpoint), its
     # traversal outputs read back, not recomputed (render.render_rays)
     remat_bounces: bool = False
-    bounce_skip: bool = False  # not ported
+    # skip every bounce after the wavefront's last ray has terminated (an
+    # exact identity, render.render_rays); off by default, as in the JAX package
+    bounce_skip: bool = False
     # one flattened (L*N,) any-hit walk for the whole shadow pass instead
     # of L sequential N-ray walks — identical visibility bits.  None =
     # auto: on for CUDA tensors, off on the CPU (as the JAX package's
@@ -89,7 +91,11 @@ class Config:
     # teapot).  On the H100 the flagship frame is slower with it off
     # (chip_smoke.py phase 11, PERF.md §6).
     sort_shadow: Optional[bool] = None
-    shadow_reverse: Optional[bool] = None  # None/False: off (not ported)
+    # triangle shadow rays cast from the light toward the surface
+    # (shading.light_visibility, batched shadows only); f32 may flip a
+    # grazing occluder, so None and False mean off on every device (the
+    # JAX package turns it on only on its TPU)
+    shadow_reverse: Optional[bool] = None
     # small-mesh crossover: meshes with <= this many triangles bypass the
     # kd walk for the brute-force intersector (0 = always use the tree)
     brute_threshold: int = 0

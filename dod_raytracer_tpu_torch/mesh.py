@@ -1,17 +1,16 @@
-"""Host-side mesh pipeline: OBJ loading, vertex joining, smooth normals.
+"""Host-side mesh pipeline: OBJ and PLY loading, vertex joining, smooth normals.
 
 Counterpart of ``dod_raytracer_tpu.mesh`` (the reference's assimp import,
 ``mesh.cpp:11-14``: Triangulate | JoinIdenticalVertices | GenSmoothNormals,
 and the per-face flattening of ``mesh.cpp:36-48``), numpy only:
 
 * ``load_obj``       — OBJ parser (v / vn / f, fan triangulation).
+* ``load_ply``       — PLY parser (ascii, binary little and big endian).
 * ``join_identical`` — exact-position vertex dedup.
 * ``smooth_normals`` — per-vertex average of adjacent unit face normals.
 * ``mesh_to_triangles`` — flatten to the renderer's (T, 3, 3) soup.
 * ``procedural_dragon`` — the deterministic 869,952-triangle dragon
   stand-in that ``bench.py`` renders (committed as ``assets/dragon_proc.npz``).
-
-The PLY reader is not ported: the repository has no PLY asset.
 """
 
 from __future__ import annotations
@@ -61,6 +60,113 @@ def load_obj(path: str):
     return v, fc, vn
 
 
+_PLY_TYPES = {
+    "char": "i1", "int8": "i1", "uchar": "u1", "uint8": "u1",
+    "short": "i2", "int16": "i2", "ushort": "u2", "uint16": "u2",
+    "int": "i4", "int32": "i4", "uint": "u4", "uint32": "u4",
+    "float": "f4", "float32": "f4", "double": "f8", "float64": "f8",
+}
+
+
+def load_ply(path: str):
+    """Parse a PLY file -> (verts (V,3) f32, faces (F,3) i32, vn or None).
+
+    Handles ``format ascii/binary_little_endian/binary_big_endian 1.0``,
+    arbitrary per-vertex property order (x/y/z picked out; nx/ny/nz kept
+    when present), and list-typed face properties with fan triangulation
+    of polygons (aiProcess_Triangulate equivalent).
+    """
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"ply":
+            raise ValueError(f"{path}: not a PLY file")
+        fmt = None
+        elements = []  # (name, count, [(prop_name, dtype) | ('list', ct, it)])
+        while True:
+            line = f.readline()
+            if not line:
+                raise ValueError(f"{path}: unterminated PLY header")
+            parts = line.decode("ascii", "replace").split()
+            if not parts or parts[0] == "comment":
+                continue
+            if parts[0] == "format":
+                fmt = parts[1]
+            elif parts[0] == "element":
+                elements.append((parts[1], int(parts[2]), []))
+            elif parts[0] == "property":
+                if parts[1] == "list":
+                    elements[-1][2].append((parts[4], "list", parts[2], parts[3]))
+                else:
+                    elements[-1][2].append((parts[2], parts[1]))
+            elif parts[0] == "end_header":
+                break
+        if fmt not in ("ascii", "binary_little_endian", "binary_big_endian"):
+            raise ValueError(f"{path}: unsupported PLY format {fmt!r}")
+        endian = "<" if fmt != "binary_big_endian" else ">"
+
+        verts = normals = None
+        faces = []
+        for name, count, props in elements:
+            if name == "vertex":
+                names = [p[0] for p in props]
+                if any(p[1] == "list" for p in props):
+                    raise ValueError(f"{path}: list property on vertex element")
+                if fmt == "ascii":
+                    rows = np.loadtxt(
+                        [f.readline() for _ in range(count)],
+                        dtype=np.float64, ndmin=2)
+                else:
+                    dt = np.dtype([(p[0], endian + _PLY_TYPES[p[1]])
+                                   for p in props])
+                    raw = np.frombuffer(f.read(dt.itemsize * count), dtype=dt)
+                    rows = np.stack([raw[n].astype(np.float64) for n in names],
+                                    axis=1)
+                idx = {n: i for i, n in enumerate(names)}
+                verts = rows[:, [idx["x"], idx["y"], idx["z"]]].astype(np.float32)
+                if all(k in idx for k in ("nx", "ny", "nz")):
+                    normals = rows[:, [idx["nx"], idx["ny"], idx["nz"]]].astype(np.float32)
+            elif name == "face":
+                list_props = [p for p in props if p[1] == "list"]
+                if not list_props:
+                    raise ValueError(f"{path}: face element has no list property")
+                if fmt != "ascii" and len(props) != 1:
+                    raise ValueError(
+                        f"{path}: extra binary face properties unsupported")
+                # scalar props may precede the index list (each is one
+                # ascii token per row); the count token sits after them
+                lead = props.index(list_props[0])
+                for _ in range(count):
+                    if fmt == "ascii":
+                        nums = f.readline().split()
+                        k = int(nums[lead])
+                        idx = [int(x) for x in nums[lead + 1:lead + 1 + k]]
+                    else:
+                        cnt_t = endian + _PLY_TYPES[list_props[0][2]]
+                        idx_t = endian + _PLY_TYPES[list_props[0][3]]
+                        k = int(np.frombuffer(
+                            f.read(np.dtype(cnt_t).itemsize), dtype=cnt_t)[0])
+                        idx = np.frombuffer(
+                            f.read(np.dtype(idx_t).itemsize * k), dtype=idx_t)
+                    for j in range(1, k - 1):  # fan triangulation
+                        faces.append((int(idx[0]), int(idx[j]), int(idx[j + 1])))
+            else:
+                # skip unknown elements (ascii: line-per-row; binary: fixed)
+                if fmt == "ascii":
+                    for _ in range(count):
+                        f.readline()
+                else:
+                    if any(p[1] == "list" for p in props):
+                        raise ValueError(
+                            f"{path}: cannot skip binary list element {name!r}")
+                    dt = np.dtype([(p[0], endian + _PLY_TYPES[p[1]])
+                                   for p in props])
+                    f.read(dt.itemsize * count)
+    if verts is None:
+        raise ValueError(f"{path}: PLY file has no vertex element")
+    fc = np.asarray(faces, np.int32).reshape(-1, 3)
+    vn = normals[fc] if normals is not None else None  # (F,3,3) like load_obj
+    return verts, fc, vn
+
+
 def join_identical(verts: np.ndarray, faces: np.ndarray):
     """Merge exactly-coincident vertices (aiProcess_JoinIdenticalVertices)."""
     uniq, inverse = np.unique(verts, axis=0, return_inverse=True)
@@ -94,10 +200,10 @@ def mesh_to_triangles(verts: np.ndarray, faces: np.ndarray, vertex_normals: np.n
 
 
 def load_mesh(path: str):
-    """assimp-equivalent pipeline for one OBJ file."""
-    if not path.lower().endswith(".obj"):
-        raise NotImplementedError(f"{path}: only OBJ meshes are ported so far")
-    verts, faces, vn_per_face = load_obj(path)
+    """assimp-equivalent pipeline for one mesh file: ``.ply`` paths are
+    read as PLY, every other path as OBJ (the JAX package's dispatch)."""
+    loader = load_ply if path.lower().endswith(".ply") else load_obj
+    verts, faces, vn_per_face = loader(path)
     if vn_per_face is not None:
         return verts[faces].astype(np.float32), vn_per_face.astype(np.float32)
     verts, faces = join_identical(verts, faces)
@@ -154,7 +260,7 @@ def load_mesh_asset(name: str):
     """Named asset loader: 'teapot' (the committed reference mesh),
     'dragon' (the procedural stand-in, read from the committed
     ``assets/dragon_proc.npz``; built in memory when that file is missing,
-    and never written back) or an OBJ path."""
+    and never written back) or a mesh path (``load_mesh``)."""
     if name == "teapot":
         return load_mesh(os.path.join(_ASSET_DIR, "teapot.obj"))
     if name == "dragon":

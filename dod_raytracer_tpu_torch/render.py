@@ -15,7 +15,8 @@ into such blocks (an exact permutation).  ``cfg.sort_bounces`` re-sorts
 the wavefront every bounce by ``_sort_keys`` (another exact permutation)
 so that the warp walks' warps hold neighbouring rays.
 ``cfg.remat_bounces`` recomputes each bounce in the backward
-(``render_rays``).  The JAX package's dead-round skipping is not ported.
+(``render_rays``); ``cfg.bounce_skip`` skips every bounce after the last
+ray of the wavefront has terminated (an exact identity).
 """
 
 from __future__ import annotations
@@ -31,11 +32,6 @@ from .shading import lighting_factor
 from .utils.math import reflect
 
 _BLOCK_H, _BLOCK_W = 8, 128
-
-
-def _check_knobs(cfg) -> None:
-    if getattr(cfg, "bounce_skip", None):
-        raise NotImplementedError("bounce_skip is not ported yet")
 
 
 def _part1by2(v):
@@ -150,15 +146,23 @@ def render_rays(scene, o, d, pixel_dirs, cfg: Config) -> torch.Tensor:
     reads the bounce's permutation, closest-triangle winners and shadow
     bits back from the forward (the JAX package's
     ``save_only_these_names("traversal")``), so it launches no traversal
-    or brute-force kernel."""
-    _check_knobs(cfg)
+    or brute-force kernel.
+
+    With ``cfg.bounce_skip`` (JAX ``render.py:152-175``) each bounce first
+    reads ``active.any()`` back to the host, and once no ray of the
+    wavefront is active every later bounce, its sort included, is skipped
+    whole: a dead bounce is an exact identity, since every update is
+    masked by ``active``.  A skipped bounce adds nothing to the backward."""
     n = o.shape[0]
     sort = _sort_bounces(scene, cfg, o.device)
     # slot i of the (sorted) wavefront holds pixel slot_pix[i]
     state = (o, d, pixel_dirs, torch.zeros_like(o), torch.ones((n,), dtype=torch.bool, device=o.device),
              torch.arange(n, device=o.device) if sort else None)
     remat = getattr(cfg, "remat_bounces", False) and torch.is_grad_enabled()
+    skip = getattr(cfg, "bounce_skip", False)
     for k in range(cfg.recursion_depth):
+        if skip and not bool(state[4].any()):
+            break  # no ray is active, so neither is any in a later bounce
         if remat:
             state = checkpoint(_bounce, scene, cfg, k, sort, {}, *state,
                                use_reentrant=False, preserve_rng_state=False)

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .intersect import occluded, remember
+from .intersect import occluded, occluded_families, occluded_triangles, remember
 from .utils.math import sqrt
 
 AMBIENT = 0.2  # main.cpp:158
@@ -28,8 +28,6 @@ SHADOW_OFFSET = 0.01  # main.cpp:192
 
 
 def _batch_lights(cfg, device) -> bool:
-    if getattr(cfg, "shadow_reverse", None):
-        raise NotImplementedError("shadow_reverse is not ported yet")
     batch = getattr(cfg, "shadow_batch_lights", None)
     if batch is None:
         batch = device.type == "cuda"
@@ -46,17 +44,33 @@ def _sort_shadow(scene, cfg) -> bool:
     return bool(sort)
 
 
-def _shadow_perm(scene, o, d, t_max, n_lights: int):
-    """The permutation that groups each light's shadow rays by hit-point
-    Morton code (JAX ``shading.py:122-146``, forward rays): a stable sort
-    on the 21-bit origin key, killed pairs (t_max < 0) at the tail of
-    their light's segment."""
+def _forward_key(scene, o, d, t_max):
+    """Forward shadow rays: the 21-bit hit-point Morton code, killed pairs
+    (t_max < 0) at 1 << 21 -> (key, light segment 1 << 22)."""
     from .render import _sort_keys
 
     key = _sort_keys(scene, o, d) & ((1 << 21) - 1)
-    key = torch.where(t_max < 0.0, 1 << 21, key)
+    return torch.where(t_max < 0.0, 1 << 21, key), 1 << 22
+
+
+def _reversed_key(scene, o, d, t_max):
+    """Reversed shadow rays share their light's origin, so they group by
+    direction: the 9-bit direction bin of the *forward* rays ``o``, ``d``,
+    killed pairs of the reversed window ``t_max`` at 1 << 10 -> (key,
+    light segment 1 << 11) (JAX ``shading.py:131-145``)."""
+    from .render import _sort_keys
+
+    key = _sort_keys(scene, o, d) >> 21
+    return torch.where(t_max < 0.0, 1 << 10, key), 1 << 11
+
+
+def _shadow_perm(scene, o, d, t_max, n_lights: int, key_rule=_forward_key):
+    """The permutation that groups each light's shadow rays by
+    ``key_rule`` (JAX ``shading.py:122-146``): a stable sort on the key,
+    killed pairs at the tail of their light's segment."""
+    key, seg = key_rule(scene, o, d, t_max)
     light_ix = torch.arange(n_lights, dtype=torch.int32, device=o.device).repeat_interleave(o.shape[0] // n_lights)
-    return torch.sort(key + light_ix * (1 << 22), stable=True).indices
+    return torch.sort(key + light_ix * seg, stable=True).indices
 
 
 def shadow_rays(scene, points, active=None, relevant=None):
@@ -81,25 +95,55 @@ def shadow_rays(scene, points, active=None, relevant=None):
     return o.reshape(L * n, 3), ldir.reshape(L * n, 3), dist.reshape(L * n)
 
 
+def reversed_rays(scene, d):
+    """The triangle half of the reversed shadow wavefront (JAX
+    ``shading.py:100-121``) from the forward one's directions ``d``
+    (L*N, 3), light-major: origins just past each light, ``light +
+    0.01 * d``, and directions ``-d`` -> (o, d).  With the forward window
+    (0, t_max) the segment is the forward one in exact arithmetic; f32
+    rounds the reversed intersection otherwise, so a grazing occluder can
+    flip."""
+    lp = scene.lights.position
+    o = lp.repeat_interleave(d.shape[0] // lp.shape[0], dim=0) + d * SHADOW_OFFSET
+    return o, -d
+
+
 @torch.no_grad()
 def light_visibility(scene, points, cfg, active=None, relevant=None) -> torch.Tensor:
     """(N, L) bool — canSeeLight (main.cpp:182-219) for all rays x lights.
 
     Two execution shapes with identical visibility bits (occlusion is
     elementwise over rays): one any-hit query over the flattened (L*N,)
-    shadow wavefront (``shadow_batch_lights``), sorted per light by
-    hit-point Morton code where ``_sort_shadow`` says so (an exact
-    permutation), or L sequential N-ray queries.  Pairs masked out by ``active`` or ``relevant`` report
+    shadow wavefront (``shadow_batch_lights``), sorted per light where
+    ``_sort_shadow`` says so (an exact permutation), or L sequential N-ray
+    queries.  Pairs masked out by ``active`` or ``relevant`` report
     *visible*; callers only mask pairs whose contribution is exactly zero.
+
+    ``cfg.shadow_reverse`` (batched only; the per-light loop ignores it,
+    as JAX's does) tests the sphere, plane and cylinder families on the
+    forward rays, whose origin the reference's origin-inside sphere quirk
+    must see, and the triangles on ``reversed_rays``, pairs a family
+    already blocks killed; the sort then groups each light's rays by
+    direction bin (``_reversed_key``) instead of hit point.
     """
     if _batch_lights(cfg, points.device):
         o, d, t = shadow_rays(scene, points, active, relevant)
+        qo, qd, family = o, d, None
+        query, key_rule = occluded, _forward_key
+        if getattr(cfg, "shadow_reverse", None):
+            family = occluded_families(scene, o, d, t, cfg)
+            t = torch.where(family, -1.0, t)
+            qo, qd = reversed_rays(scene, d)
+            query, key_rule = occluded_triangles, _reversed_key
         if _sort_shadow(scene, cfg):
-            perm = _shadow_perm(scene, o, d, t, scene.lights.position.shape[0])
+            # the key is computed on the forward rays in both rules
+            perm = _shadow_perm(scene, o, d, t, scene.lights.position.shape[0], key_rule)
             blocked = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
-            blocked[perm] = occluded(scene, o[perm], d[perm], t[perm], cfg)
+            blocked[perm] = query(scene, qo[perm], qd[perm], t[perm], cfg)
         else:
-            blocked = occluded(scene, o, d, t, cfg)
+            blocked = query(scene, qo, qd, t, cfg)
+        if family is not None:
+            blocked = blocked | family
         return ~blocked.reshape(-1, points.shape[0]).T
 
     kill0 = torch.zeros(points.shape[:1], dtype=torch.bool, device=points.device)

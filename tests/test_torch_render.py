@@ -170,9 +170,9 @@ def test_unported_options_raise(default_pair):
     from dod_raytracer_tpu_torch.camera import primary_rays
 
     o, d, raw = primary_rays(8, 4, device="cpu")
-    for knob in ("bounce_skip", "shadow_reverse"):
-        with pytest.raises(NotImplementedError):
-            T.render_rays(tscene, o, d, raw, T.Config(**FRAME, **{knob: True}))
+    # only leaf-sharded triangles wait for the distribution slice
+    with pytest.raises(NotImplementedError, match="leaf-sharded"):
+        T.render_rays(tscene, o, d, raw, T.Config(**FRAME, tri_shard_axis="mp"))
     with pytest.raises(ValueError):
         T.render_image(tscene, T.Config(**FRAME), device="cuda")  # the scene is on the CPU
 

@@ -127,8 +127,9 @@ def test_mesh_pipeline_matches():
     np.testing.assert_array_equal(tmesh.smooth_normals(v, f), jmesh.smooth_normals(jv, jf))
     for a, b in zip(tmesh.load_mesh_asset("teapot"), jmesh.load_mesh_asset("teapot")):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        tmesh.load_mesh_asset("dragon.ply")  # the PLY reader is not ported
+    for pkg in (tmesh, jmesh):  # a .ply path reaches the PLY reader (tests/test_torch_mesh_ply.py)
+        with pytest.raises(FileNotFoundError):
+            pkg.load_mesh_asset("dragon.ply")
 
 
 def test_write_png_round_trip(tmp_path):

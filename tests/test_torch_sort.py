@@ -215,9 +215,47 @@ def test_sort_bounces_default_by_device(teapot_pair, small_dragon):
     assert not trender._sort_bounces(tscene, T.Config(sort_bounces=False), "cuda")
 
 
+def _edge_distance(verts, o, d):
+    """Barycentric distance from its nearest edge of the triangle each ray
+    meets first (torch brute force; inf where it meets none)."""
+    from dod_raytracer_tpu_torch.ops.triangle import brute_force_closest, mt_single
+
+    t, idx = brute_force_closest(verts, o, d)
+    hit = torch.isfinite(t)
+    _, u, v = mt_single(verts[idx.long()], o, d, hit)
+    near = torch.minimum(torch.minimum(u.abs(), v.abs()), (1.0 - u - v).abs())
+    return torch.where(hit, near, float("inf"))
+
+
 @pytest.mark.parametrize("knob", ["bounce_skip", "shadow_reverse"])
-def test_unported_knobs_still_raise(teapot_pair, knob):
-    _, tscene = teapot_pair
-    o, d, raw = primary_rays(8, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match=knob):
-        T.render_rays(tscene, o, d, raw, T.Config(**FRAME, **{knob: True}))
+def test_knob_matches_jax(teapot_pair, teapot_unsorted, knob):
+    """bounce_skip: the bounce-skipped sorted frame is the unsorted,
+    unskipped frame bit for bit.  shadow_reverse: the batched visibility
+    bits of the primary hits with reversed triangle rays, sorted and
+    unsorted, equal each other and JAX's (``shadow_batch_lights``,
+    ``shadow_reverse``) but on rays whose occluder is met within 1e-3
+    (barycentric) of an edge, at most 0.1% of the pairs: there JAX's
+    barycentric gather walk and the port's Plücker edge signs may
+    disagree (ROADMAP.md Queue C 2)."""
+    jscene, tscene = teapot_pair
+    if knob == "bounce_skip":
+        img = T.render_image(tscene, T.Config(**FRAME, sort_bounces=True, sort_shadow=True, bounce_skip=True),
+                             device="cpu")
+        assert torch.equal(img, teapot_unsorted)
+        return
+    o, d, _ = primary_rays(32, 16, device="cpu")
+    hit = tint.closest_hit(tscene, o, d, T.Config(**FRAME))
+    got = {srt: tsh.light_visibility(tscene, hit.point, T.Config(**FRAME, shadow_reverse=True, sort_shadow=srt),
+                                     hit.mask) for srt in (False, True)}
+    assert torch.equal(got[False], got[True])
+    assert (~got[True]).any()
+    jcfg = _FrozenConfig.from_config(J.Config(**FRAME, shadow_reverse=True))
+    ref = torch.from_numpy(np.array(jsh.light_visibility(
+        jscene, jnp.asarray(hit.point.numpy()), jcfg, jnp.asarray(hit.mask.numpy()))))
+    differ = (got[True] != ref).T.reshape(-1)  # light-major, as the shadow wavefront
+    if differ.any():
+        so, sd, _ = tsh.shadow_rays(tscene, hit.point, hit.mask)
+        ro, rd = tsh.reversed_rays(tscene, sd)
+        near = _edge_distance(tscene.triangles.verts, ro[differ], rd[differ])
+        assert bool((near < 1e-3).all()), near
+    assert int(differ.sum()) <= np.ceil(1e-3 * differ.numel())
