@@ -176,12 +176,40 @@ Phases, each printed with its elapsed seconds as it ends:
      whose largest channel differs by more than 1e-3
      (tests/test_render_golden.py:199-215) and u8 channels off by > 1
      under 1%, then KNOB_REPS frames each reversed and forward, in turns;
-     the ``shadow_reverse`` line; then the card line and the
-     ``kernels`` JSON line (each path's kernels with their launches on the
-     gradient path, forward and backward; the packet walk's dragon
-     entries with their launches on phases 20-23's paths, the any-hit one
-     with the reversed rays' times and bounds);
- 24. the result line ``{"ok": true, "device": {...}}``.
+     the ``shadow_reverse`` line;
+ 24. distribution (``parallel``), every frame the flagship's and held to
+     phase 11's (shape, u8 channels off by > 1 under 1%), each world's
+     ranks started by ``multihost.spawn`` after phase 2 built the kernels
+     (a rank that fails or outlasts DIST_TIMEOUT_S fails the run), each
+     rank's launch counts set to 0 just before its timed frame and read
+     just after (only the packet walk, in both modes): the dp render
+     (``render_image_sharded``) in an NCCL world of one rank a card (this
+     process on a one-card machine), then in a gloo world of DP_WORLD
+     processes sharing the card (the backend rule: more ranks than cards);
+     seconds, launches a rank;
+ 25. the leaf-sharded render (``render_image_leaf_sharded``,
+     ``tri_shard_axis="mp"``, the default sorts on) in gloo worlds of
+     (dp, mp) = LEAF_SHAPES on the card: each rank builds its shard's tree,
+     renders a timed frame and one more with the combine's collectives
+     counted (calls, bytes, seconds); then, in this process, the packet
+     walk on shard 0 of 2's tree against its plain walk by the packet
+     rule, on phase 14's window at bounce 0 and LATER_BOUNCE (closest hit
+     and the first SHADOW_POINTS points' shadow rays);
+ 26. the train steps, run by phase 24's gloo world and phase 25's (1, 2)
+     world after their frames: the 1D dp step (``make_train_step`` on
+     DP_PARAMS, remat_bounces) twice, its first loss held to the
+     single-process loss of phase 11's frame to rtol 1e-5; the 2D step
+     (``loss_and_vertex_grads_2d``, then one ``make_train_step_2d`` step)
+     on the dragon's vertices, its loss held to phase 17's to rtol 1e-5 and
+     its vertex gradient, gathered here from the shards, to phase 17's by
+     phase 18's rule; the ``distributed`` line (times from processes that
+     share one card: they do not measure scaling); then the card line
+     and the ``kernels`` JSON line (each path's kernels with their
+     launches on the gradient path, forward and backward; the packet
+     walk's dragon entries with their launches on phases 20-23's paths
+     and each rank's on phases 24-26's, the any-hit one with the reversed
+     rays' times and bounds);
+ 27. the result line ``{"ok": true, "device": {...}}``.
 
 Parity rules.  Against the plain walks, and between the per-ray kernels
 (the per-ray packet, mega and forest walks, the binned walk), the outputs
@@ -286,6 +314,12 @@ FIT_PARAMS = ("spheres.color", "mesh_colors", "lights.intensity")  # phase 19, B
 FIT_STEPS = 5
 FIT_SEED = 0  # the start's colors and intensities: the truth's times U(0.7, 1.3) from this seed
 SGD_MAX_STEP = 1e-4  # the dragon's sgd_step moves no vertex coordinate further than this
+FLAGSHIP = dict(Width=1920, Height=1080, use_kdtree=True, ray_tile=0, MaxPrims=192, leaf_chunk_lanes=48)
+DP_WORLD = 2  # gloo ranks sharing the card in phases 24 and 26
+LEAF_SHAPES = ((1, 2), (2, 2))  # (dp, mp) gloo worlds sharing the card in phase 25
+DP_PARAMS = ("spheres", "lights")  # phase 26's 1D step
+DP_TARGET = 0.25  # its target colour (tests/test_sharding.py)
+DIST_TIMEOUT_S = 600.0  # a spawned world of phases 24-26 that runs longer fails the run
 
 _T0 = time.perf_counter()
 
@@ -372,6 +406,32 @@ def add_counts(total: dict, counts: dict) -> dict:
 def launched(counts: dict) -> dict:
     """The kernels and modes of ``counts`` that launched at least once."""
     return {k: {m: n for m, n in modes.items() if n} for k, modes in counts.items() if any(modes.values())}
+
+
+def kernel_counters() -> dict:
+    """Kernel name -> the object whose ``launches`` counts it and whose
+    ``reset_launches()`` sets the counts to 0: every kernel of the port,
+    the per-ray kernels the warp walks and brute-force kernels replaced,
+    and the binned walk's round kernel."""
+    from dod_raytracer_tpu_torch.ops import binned, forest, mega, mt, packet, plucker
+
+    counters = {"packet_traverse": packet, "mega_walk": mega, "forest_walk": forest, "block_loop": binned,
+                "mt_closest": mt, "plucker_closest": plucker}  # kernel -> the module that counts it
+    for name, module in list(counters.items()):
+        counters[f"{name}_per_ray"] = SimpleNamespace(launches=module.per_ray_launches,
+                                                      reset_launches=module.reset_launches)
+    counters["binned_descend"] = SimpleNamespace(launches=binned.descend_launches,
+                                                 reset_launches=binned.reset_launches)
+    return counters
+
+
+def reset_launches(counters: dict) -> None:
+    for module in counters.values():
+        module.reset_launches()
+
+
+def read_launches(counters: dict) -> dict:
+    return {k: dict(module.launches) for k, module in counters.items()}
 
 
 def grad_close(g_ref, g, rtol: float, atol: float) -> dict:
@@ -581,9 +641,114 @@ def grad_phases(torch, dev, dscene, fcfg, flag_s: float, reset_counts, read_coun
     check(tuple(mimg.shape) == (fcfg.Height, fcfg.Width, 3) and bool(torch.isfinite(mimg).all()),
           "the frame after sgd_step is not finite")
     out["sgd_step"] = dict(lr=lr, max_step=SGD_MAX_STEP, frame_seconds=msec)
+    out["vertex_grads"] = gverts  # held by phase 26; not printed
     log(f"phase 19 dragon sgd_step on triangles.verts (lr {lr:.4g}: at most {SGD_MAX_STEP} a coordinate): "
         f"block_tris, block_g and block_aabb equal refresh_kd_blocks of the new vertices; the next frame "
         f"{msec:.3f} s, finite, mean {float(mimg.mean()):.4f}")
+    return out
+
+
+# ---- phases 24-26: the ranks of the distributed paths.  multihost.spawn runs each in a process of its
+# own, which imports this file by name (its main() does not run there) and returns numpy results.
+
+def timed_frame(torch, render, quantize_u8) -> dict:
+    """A warm call of ``render``, then a timed one with every launch count
+    set to 0 just before it and read just after: only the packet walk may
+    launch, in both modes -> seconds, launches by mode, the u8 frame."""
+    counters = kernel_counters()
+    render()
+    reset_launches(counters)
+    seconds, img = wall_s(torch, render)
+    counts = read_launches(counters)
+    check(all(counts["packet_traverse"][m] > 0 for m in ("closest", "any_hit")),
+          f"sharded frame: the packet walk did not launch in both modes: {counts}")
+    check(not launched({k: c for k, c in counts.items() if k != "packet_traverse"}),
+          f"sharded frame: another kernel launched: {launched(counts)}")
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.01, "sharded frame: not finite, or black")
+    return dict(seconds=seconds, launches=counts["packet_traverse"], shape=list(img.shape), u8=quantize_u8(img))
+
+
+def dp_rank(rank: int, world: int, init: str, step: bool) -> dict:
+    """A rank of a dp world on the card (phase 24): the flagship scene
+    built and broadcast from rank 0 (``replicate_scene``), its frame
+    through ``render_image_sharded``; with ``step``, then phase 26's 1D
+    step (``make_train_step`` on DP_PARAMS, remat_bounces, target
+    DP_TARGET) twice."""
+    import torch
+
+    from dod_raytracer_tpu_torch import Config, default_scene, quantize_u8
+    from dod_raytracer_tpu_torch.parallel import multihost, sharding
+
+    backend = multihost.initialize(init, world, rank, device="cuda", timeout_s=DIST_TIMEOUT_S)
+    mesh = sharding.make_mesh(world)
+    cfg = Config(**FLAGSHIP)
+    setup_s, scene = wall_s(torch, lambda: sharding.replicate_scene(
+        default_scene(seed=0, cfg=cfg, mesh="dragon").build(cfg, device=mesh.device), mesh))
+    out = dict(rank=rank, backend=backend, device=str(mesh.device), setup_s=setup_s)
+    out.update(timed_frame(torch, lambda: sharding.render_image_sharded(scene, cfg, mesh), quantize_u8))
+    if step:
+        gcfg = dataclasses.replace(cfg, remat_bounces=True)
+        target = torch.full((cfg.Width * cfg.Height, 3), DP_TARGET, device=mesh.device)
+        step_fn = sharding.make_train_step(gcfg, mesh, DP_PARAMS, lr=0.1)
+        losses, seconds = [], []
+        for _ in range(2):
+            sec, (loss, scene) = wall_s(torch, lambda scene=scene: step_fn(scene, target))
+            losses.append(float(loss))
+            seconds.append(sec)
+        out["step"] = dict(losses=losses, seconds=seconds)
+    return out
+
+
+def leaf_rank(rank: int, world: int, init: str, shape: tuple, step: bool) -> dict:
+    """A rank of a (dp, mp) = ``shape`` world on the card (phase 25): its
+    shard of the flagship scene (``make_leaf_sharded_scene``), the
+    frame through ``render_image_leaf_sharded`` with the default sorts,
+    then one more frame with the combine's collectives counted
+    (``LeafShard.stats``); with ``step``, then phase 26's 2D step
+    (remat_bounces, target 0): ``loss_and_vertex_grads_2d`` (this rank's
+    gradient, returned from the first dp row) and one
+    ``make_train_step_2d`` step."""
+    import torch
+
+    from dod_raytracer_tpu_torch import Config, default_scene, quantize_u8
+    from dod_raytracer_tpu_torch.ops import packet
+    from dod_raytracer_tpu_torch.parallel import leaf_shard, multihost
+    from dod_raytracer_tpu_torch.render import _sort_bounces
+    from dod_raytracer_tpu_torch.shading import _sort_shadow
+
+    backend = multihost.initialize(init, world, rank, device="cuda", timeout_s=DIST_TIMEOUT_S)
+    mesh = multihost.global_mesh(("dp", "mp"), shape)
+    cfg = Config(**FLAGSHIP, tri_shard_axis="mp")
+    setup_s, scene = wall_s(torch, lambda: leaf_shard.make_leaf_sharded_scene(
+        default_scene(seed=0, cfg=cfg, mesh="dragon"), cfg, mesh, device=mesh.device))
+    sh, kd = scene.shard, scene.kd
+    out = dict(rank=rank, backend=backend, coords=mesh.coords, setup_s=setup_s,
+               shard=dict(triangles=scene.triangles.verts.shape[0], offset=sh.offset, nodes=kd.node_flag.shape[0],
+                          blocks=kd.block_g.shape[0], whole_nodes=sh.n_nodes, whole_blocks=sh.n_blocks,
+                          sort_bounces=_sort_bounces(scene, cfg, mesh.device), sort_shadow=_sort_shadow(scene, cfg)))
+    render = lambda: leaf_shard.render_image_leaf_sharded(scene, cfg, mesh)
+    out.update(timed_frame(torch, render, quantize_u8))
+    sh.stats = leaf_shard.CommStats()
+    comm_s = wall_s(torch, render)[0]
+    out["comm"] = dict(frame_seconds=comm_s, **dataclasses.asdict(sh.stats))
+    sh.stats = None
+    if step:
+        gcfg = dataclasses.replace(cfg, remat_bounces=True)
+        target = torch.zeros((cfg.Width * cfg.Height, 3), device=mesh.device)
+        packet.reset_launches()
+        gsec, (loss, grad) = wall_s(torch, lambda: leaf_shard.loss_and_vertex_grads_2d(scene, target, gcfg, mesh))
+        launches = dict(packet.launches)
+        top = grad.abs().max()
+        torch.distributed.all_reduce(top, op=torch.distributed.ReduceOp.MAX)  # one lr on every rank
+        lr = SGD_MAX_STEP / float(top)
+        ssec, (sloss, moved) = wall_s(torch, lambda: leaf_shard.make_train_step_2d(gcfg, mesh, lr=lr)(scene, target))
+        check(math.isclose(float(sloss), float(loss), rel_tol=1e-5), f"2D step: loss {float(sloss)} vs {float(loss)}")
+        check(torch.equal(moved.kd.block_tris,
+                          leaf_shard.refresh_kd_blocks_stacked(scene.kd, moved.triangles.verts).block_tris),
+              "2D step: the blocks were not refreshed from the moved vertices")
+        out["step_2d"] = dict(loss=float(loss), grad_seconds=gsec, step_seconds=ssec, lr=lr, launches=launches,
+                              moved=float((moved.triangles.verts - scene.triangles.verts).abs().max()),
+                              grad=grad.cpu().numpy() if mesh.coords["dp"] == 0 else None)
     return out
 
 
@@ -613,22 +778,14 @@ def main(device: str = "cuda") -> int:
     }
     per_ray = packet.packet_traverse_per_ray
     packet_walk = packet.packet_traverse  # the frame's kernel
-    counters = {"packet_traverse": packet, "mega_walk": mega, "forest_walk": forest, "block_loop": binned,
-                "mt_closest": mt, "plucker_closest": plucker}  # kernel -> the module that counts it
-    for name, module in (("packet_traverse", packet), ("mega_walk", mega), ("forest_walk", forest),
-                         ("block_loop", binned), ("mt_closest", mt), ("plucker_closest", plucker)):
-        counters[f"{name}_per_ray"] = SimpleNamespace(launches=module.per_ray_launches,
-                                                      reset_launches=module.reset_launches)
-    counters["binned_descend"] = SimpleNamespace(launches=binned.descend_launches,
-                                                 reset_launches=binned.reset_launches)
+    counters = kernel_counters()
     BINNED = ("block_loop", "binned_descend")  # the binned walk's two kernels
 
     def reset_counts():
-        for module in counters.values():
-            module.reset_launches()
+        reset_launches(counters)
 
     def read_counts():
-        return {k: dict(module.launches) for k, module in counters.items()}
+        return read_launches(counters)
 
     def frame(scene, cfg, path: str, only, modes=("closest", "any_hit")):
         """One timed frame of the main path ``path``: every count set to 0
@@ -1613,7 +1770,7 @@ def main(device: str = "cuda") -> int:
     del bframes, bpk_img, bpr_img, bscene
 
     # ---- 10. the flagship scene: bench.py's dragon ----
-    fcfg = Config(Width=1920, Height=1080, use_kdtree=True, ray_tile=0, MaxPrims=192, leaf_chunk_lanes=48)
+    fcfg = Config(**FLAGSHIP)
     t = time.perf_counter()
     builder = default_scene(seed=0, cfg=fcfg, mesh="dragon")
     load_s = time.perf_counter() - t
@@ -1645,8 +1802,7 @@ def main(device: str = "cuda") -> int:
         f"{pixels / flag_s:.0f} primary rays/s, mean {float(flag_img.mean()):.4f}")
 
     # ---- 12. the flagship frame through the forest kernel ----
-    ffcfg = Config(Width=1920, Height=1080, use_kdtree=True, ray_tile=0, MaxPrims=192, leaf_chunk_lanes=48,
-                   traversal_backend="forest")
+    ffcfg = Config(**FLAGSHIP, traversal_backend="forest")
     forest_sort = _sort_bounces(dscene, ffcfg, dev)
     wall_s(torch, lambda: render_image(dscene, ffcfg, device=dev))
     forest_s, forest_img, forest_counts = frame(dscene, ffcfg, "dragon forest frame", "forest_walk")
@@ -1841,6 +1997,7 @@ def main(device: str = "cuda") -> int:
 
     # ---- 17-19. the gradient path ----
     grads = grad_phases(torch, dev, dscene, fcfg, flag_s, reset_counts, read_counts)
+    grad_verts = grads.pop("vertex_grads")
     print(json.dumps({"grad": grads}), flush=True)
     gf = grads["grad_frame"]
     for e in kernels:  # each kernel's launches on the gradient path, forward / backward
@@ -2076,6 +2233,134 @@ def main(device: str = "cuda") -> int:
             e["reversed_shadow"]["launches_per_frame"] = rframes["dragon"]["launches"]["any_hit"]
         if e["name"].startswith("packet_traverse[") and e["name"].endswith(",dragon]"):
             e["new_paths"] = new_paths
+
+    # ---- 24-26. distribution: the dp render, the leaf-sharded render, the train steps ----
+    from dod_raytracer_tpu_torch.parallel import leaf_shard, multihost, sharding
+
+    torch.cuda.empty_cache()  # the ranks' processes share the card
+    t24 = time.perf_counter()
+    dist_out = {"card": card, "note": "ranks share one card: their times do not measure scaling"}
+
+    def held(label, ranks):
+        """Each rank's frame against phase 11's (shape, u8 rule) -> the
+        ranks' numbers without their frames and gradients."""
+        out = []
+        for r in ranks:
+            off = u8_share(r.pop("u8"), flag_u8)
+            check(r["shape"] == [fcfg.Height, fcfg.Width, 3] and off < U8_TOLERANCE,
+                  f"{label} rank {r['rank']}: {off:.4%} of u8 channels off by > 1 from phase 11's frame")
+            r["u8_off"] = off
+            out.append(r)
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as rdzv:
+        # ---- 24. dp render: an NCCL world of one rank a card, then gloo ranks sharing the card ----
+        ncards = torch.cuda.device_count()
+        if ncards == 1:  # the world of one rank is this process
+            backend = multihost.initialize(device="cuda", timeout_s=DIST_TIMEOUT_S)
+            try:
+                mesh = sharding.make_mesh()
+                setup_s, rscene = wall_s(torch, lambda: sharding.replicate_scene(dscene, mesh))
+                nccl = [dict(rank=0, backend=backend, device=str(mesh.device), setup_s=setup_s,
+                             **timed_frame(torch, lambda: sharding.render_image_sharded(rscene, fcfg, mesh),
+                                           quantize_u8))]
+                del rscene
+            finally:
+                torch.distributed.destroy_process_group()
+        else:
+            nccl = multihost.spawn(ncards, dp_rank, f"file://{rdzv}/nccl", False, timeout_s=DIST_TIMEOUT_S)
+        gloo = multihost.spawn(DP_WORLD, dp_rank, f"file://{rdzv}/dp", True, timeout_s=DIST_TIMEOUT_S)
+        check(all(r["backend"] == "nccl" for r in nccl) and all(r["backend"] == "gloo" for r in gloo),
+              f"backends: {[r['backend'] for r in nccl]}, {[r['backend'] for r in gloo]}")
+        dist_out["dp_nccl"], dist_out["dp_gloo"] = held("dp NCCL frame", nccl), held("dp gloo frame", gloo)
+        dp_steps = [r.pop("step") for r in gloo]
+        dist_out["phase24_s"] = time.perf_counter() - t24
+        log(f"phase 24 dp render of the flagship frame on {card}: NCCL, world {ncards}: "
+            + "; ".join(f"rank {r['rank']} {r['seconds']:.3f} s, launches {r['launches']}, {r['u8_off']:.4%} u8 off"
+                        for r in dist_out["dp_nccl"])
+            + f" | gloo, world {DP_WORLD} on the one card: "
+            + "; ".join(f"rank {r['rank']} {r['seconds']:.3f} s (scene built and broadcast {r['setup_s']:.2f} s), "
+                        f"launches {r['launches']}, {r['u8_off']:.4%} u8 off" for r in dist_out["dp_gloo"])
+            + f" (phase 11's frame {flag_s:.3f} s)")
+
+        # ---- 25. leaf-sharded render: (dp, mp) gloo worlds sharing the card ----
+        t25 = time.perf_counter()
+        leaf = {}
+        for shape in LEAF_SHAPES:
+            leaf[shape] = multihost.spawn(shape[0] * shape[1], leaf_rank, f"file://{rdzv}/leaf{shape[0]}x{shape[1]}",
+                                          shape, shape == (1, 2), timeout_s=DIST_TIMEOUT_S)
+    for shape, ranks in leaf.items():
+        for r in ranks:
+            check(r["shard"]["sort_bounces"] and r["shard"]["sort_shadow"],
+                  f"leaf {shape} rank {r['rank']}: the default sorts are off: {r['shard']}")
+        dist_out[f"leaf_{shape[0]}x{shape[1]}"] = held(f"leaf-sharded {shape} frame", ranks)
+    step_2d = [r.pop("step_2d") for r in leaf[(1, 2)]]
+
+    # the packet walk on one shard's tree against its plain walk: phase 14's window at bounce 0 and
+    # LATER_BOUNCE, its closest-hit queries and its first SHADOW_POINTS points' shadow rays
+    soup = [x.cpu().numpy() for x in (dscene.triangles.verts, dscene.triangles.normals, dscene.triangles.mesh_id)]
+    _, skd, _ = leaf_shard.build_leaf_sharded_triangles(*soup, fcfg, 2, 0, device=dev)
+    sdepth = _stack_depth(skd, fcfg)
+    o_all, d_all, raw_all, _, _ = frame_rays(fcfg, dev)
+    window = [x[wstart:wstart + DRAGON_PARITY_RAYS] for x in (o_all, d_all, raw_all)]
+    del o_all, d_all, raw_all
+    shard_parity = {"nodes": skd.node_flag.shape[0], "blocks": skd.block_g.shape[0]}
+    for k, closest_q, shadow_q in bounces(dscene, fcfg, *window, (0, LATER_BOUNCE), SHADOW_POINTS):
+        for mode, (qo, qd, qt) in (("closest", closest_q), ("any_hit", shadow_q)):
+            any_hit = mode == "any_hit"
+            out = packet_walk(skd, qo, qd, qt, sdepth, any_hit)
+            res = packet.parity(skd, out, traverse_plain(skd, qo, qd, qt, sdepth, any_hit), qo, qd, any_hit)
+            check(packet.parity_holds(res), f"packet walk on shard 0's tree, bounce {k} {mode}: {res}")
+            shard_parity[f"bounce{k}_{mode}"] = dict(res, hits=int(out[2].sum()))
+    dist_out["shard_parity"] = shard_parity
+    dist_out["phase25_s"] = time.perf_counter() - t25
+    for shape in LEAF_SHAPES:
+        log(f"phase 25 leaf-sharded flagship frame, (dp, mp) = {shape}, gloo on {card}: " + "; ".join(
+            f"rank {r['rank']} {r['coords']} {r['seconds']:.3f} s (shard of {r['shard']['triangles']} triangles, "
+            f"{r['shard']['nodes']} nodes, {r['shard']['blocks']} blocks; built {r['setup_s']:.2f} s), "
+            f"launches {r['launches']}, {r['u8_off']:.4%} u8 off; with the combine counted "
+            f"{r['comm']['frame_seconds']:.3f} s, {r['comm']['calls']} collectives, {r['comm']['bytes'] / 1e6:.1f} MB, "
+            f"{r['comm']['seconds']:.3f} s in them" for r in dist_out[f"leaf_{shape[0]}x{shape[1]}"]))
+    log(f"phase 25 packet walk on shard 0 of 2 ({shard_parity['nodes']} nodes, {shard_parity['blocks']} blocks) "
+        f"vs its plain walk, the packet rule: {json.dumps(shard_parity)}")
+
+    # ---- 26. the train steps: the 1D dp step (phase 24's world), the 2D step (phase 25's (1, 2) world) ----
+    n_px = fcfg.Width * fcfg.Height
+    dp_loss = float(torch.mean((flag_ref - DP_TARGET) ** 2))
+    for r, st in zip(dist_out["dp_gloo"], dp_steps):
+        check(math.isclose(st["losses"][0], dp_loss, rel_tol=1e-5),
+              f"1D step rank {r['rank']}: loss {st['losses'][0]} vs the single-process {dp_loss}")
+    loss_2d = grads["grad_frame"]["loss"] / (3 * n_px)  # phase 17's sum of squares, as a mean
+    for r, st in zip(dist_out["leaf_1x2"], step_2d):
+        check(math.isclose(st["loss"], loss_2d, rel_tol=1e-5),
+              f"2D step rank {r['rank']}: loss {st['loss']} vs the single-process {loss_2d}")
+    by_mp = {r["coords"]["mp"]: st.pop("grad") for r, st in zip(dist_out["leaf_1x2"], step_2d)}
+    morton = np.concatenate([by_mp[i] for i in range(2)])[:dscene.n_triangles]
+    g_2d = np.empty_like(morton)
+    g_2d[leaf_shard._morton_order(soup[0])] = morton
+    g_2d = torch.from_numpy(g_2d).to(dev) * (3 * n_px)  # the gradient of phase 17's sum of squares
+    rule = grad_close(grad_verts, g_2d, rtol=1e-3, atol=1e-6 * float(grad_verts.abs().max()))
+    check(rule["rel_l1"] < CARD_CPU_L1 and rule["share_off"] <= CARD_CPU_SHARE,
+          f"2D step vertex grads vs phase 17's: {rule}")
+    dist_out["step_1d"] = dict(world=DP_WORLD, params=DP_PARAMS, single_loss=dp_loss, ranks=dp_steps)
+    dist_out["step_2d"] = dict(shape=[1, 2], single_loss=loss_2d, vs_phase17=rule, ranks=step_2d)
+    dist_out["phase_s"] = time.perf_counter() - t24
+    del g_2d, morton, by_mp, grad_verts
+    print(json.dumps({"distributed": dist_out}), flush=True)
+    log(f"phase 26 train steps on {card}: 1D dp step (world {DP_WORLD}, {DP_PARAMS}, remat_bounces) losses "
+        + "; ".join(f"rank {r['rank']} {st['losses']} in {st['seconds']} s" for r, st in zip(dist_out['dp_gloo'], dp_steps))
+        + f" (single-process {dp_loss:.9e}); 2D step (1, 2) on the dragon's vertices: "
+        + "; ".join(f"rank {r['rank']} loss {st['loss']:.9e}, gradient {st['grad_seconds']:.3f} s (launches "
+                    f"{st['launches']}), a step {st['step_seconds']:.3f} s"
+                    for r, st in zip(dist_out["leaf_1x2"], step_2d))
+        + f" (single-process {loss_2d:.9e}); its vertex grads vs phase 17's {json.dumps(rule)}")
+    sharded = {"dp_nccl": dist_out["dp_nccl"], "dp_gloo": dist_out["dp_gloo"],
+               "leaf_1x2": dist_out["leaf_1x2"], "leaf_2x2": dist_out["leaf_2x2"]}
+    for e in kernels:  # the packet walk's dragon entries gain each rank's launches on the sharded paths
+        if e["name"].startswith("packet_traverse[") and e["name"].endswith(",dragon]"):
+            mode = e["name"].split("[")[1].split(",")[0]
+            e["sharded_launches"] = {k: [r["launches"][mode] for r in ranks] for k, ranks in sharded.items()}
+            e["sharded_launches"]["step_2d_gradient_1x2"] = [st["launches"][mode] for st in step_2d]
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

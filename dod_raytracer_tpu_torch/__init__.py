@@ -11,6 +11,9 @@ the reference the port is tested against, and nothing here imports it.
 
 Entry points run on the card by default (``device="cuda"``); pass
 ``device="cpu"`` to run the plain PyTorch versions on the CPU.
+The subpackage ``parallel`` distributes a frame or a train step over
+``torch.distributed`` ranks: rays over a 'dp' axis, triangles
+leaf-sharded over an 'mp' one.
 """
 
 from .config import Config

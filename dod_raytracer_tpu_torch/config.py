@@ -3,9 +3,9 @@
 Same keys, defaults and ini format as ``dod_raytracer_tpu.config`` (the
 reference's ``Config`` + loader, ``src/utils/config.h:4-38``,
 ``src/utils/config_loader.h:10-72``), so one ini file or override set
-drives both packages.  Knobs that only the JAX package implements keep
-their fields here so configs stay interchangeable; the port's modules
-raise ``NotImplementedError`` when one of them is switched on.
+drives both packages.  Knobs that only steer the JAX package's TPU
+kernels (``forest_tile``, ``packet_tile``, ``fold_groups``, ``dma_fifo``)
+keep their fields here so configs stay interchangeable, and do nothing.
 """
 
 from __future__ import annotations
@@ -99,7 +99,11 @@ class Config:
     # small-mesh crossover: meshes with <= this many triangles bypass the
     # kd walk for the brute-force intersector (0 = always use the tree)
     brute_threshold: int = 0
-    tri_shard_axis: str = ""  # leaf sharding: not ported
+    # leaf sharding: the mesh axis whose ranks each hold one shard of the
+    # triangles and kd tree (parallel.leaf_shard); set, the triangle
+    # queries always take the sharded kd path (brute_threshold ignored)
+    # and the scene must carry that axis's process group
+    tri_shard_axis: str = ""
     replicate_reference_bugs: bool = False  # e.g. cylinder hit color dropped
     # bounce-sort key variant: direction bin in the high bits, origin
     # Morton code low (default: origin-major, render._bounce_perm)

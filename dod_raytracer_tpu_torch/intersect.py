@@ -26,9 +26,21 @@ def _prefer_brute(scene, cfg) -> bool:
     return 0 < scene.n_triangles <= thr
 
 
-def _check_triangle_knobs(cfg) -> None:
-    if getattr(cfg, "tri_shard_axis", ""):
-        raise NotImplementedError("leaf-sharded triangles are not ported yet")
+def _leaf_shard(scene, cfg):
+    """The scene's ``LeafShard`` when ``cfg.tri_shard_axis`` is set (the
+    JAX package's dispatch, ``intersect.py:38-42``), else None.  Raises
+    ``ValueError`` where the two disagree: an axis set on a scene that
+    carries no process group for it, or a sharded scene without the axis
+    (its kd tree holds one shard of the triangles)."""
+    axis, shard = getattr(cfg, "tri_shard_axis", ""), getattr(scene, "shard", None)
+    if not axis:
+        if shard is not None:
+            raise ValueError(f"a scene leaf-sharded over {shard.axis!r} needs cfg.tri_shard_axis")
+        return None
+    if shard is None or shard.axis != axis:
+        raise ValueError(f"tri_shard_axis={axis!r}: the scene carries no process group for that axis "
+                         "(build it with parallel.leaf_shard.make_leaf_sharded_scene)")
+    return shard
 
 
 def remember(saved, key: str, fn):
@@ -79,10 +91,15 @@ def _closest_triangle(scene, o, d, t_max, cfg):
 def _triangles_closest(scene, o, d, t_max, cfg, saved=None) -> FamilyHit:
     """The closest triangle's hit: the winner from ``_closest_triangle``
     (or, in a recompute, from ``saved``), its hit recomputed with gradient
-    by ``triangle_hit_attrs``."""
+    by ``triangle_hit_attrs``.  A set ``cfg.tri_shard_axis`` always takes
+    the leaf-sharded kd walk and its combine over the shard group
+    (``parallel.leaf_shard``), whatever ``brute_threshold`` says."""
     if scene.n_triangles == 0:
         return miss_like(o.shape[0], o.device)
-    _check_triangle_knobs(cfg)
+    if _leaf_shard(scene, cfg) is not None:
+        from .parallel.leaf_shard import sharded_triangles_closest
+
+        return sharded_triangles_closest(scene, o, d, t_max, cfg, cfg.tri_shard_axis, saved)
     idx, hit = remember(saved, "triangles", lambda: _closest_triangle(scene, o, d, t_max, cfg))
     return tri_ops.triangle_hit_attrs(scene.triangles, o, d, idx, hit, scene.mesh_colors)
 
@@ -90,7 +107,10 @@ def _triangles_closest(scene, o, d, t_max, cfg, saved=None) -> FamilyHit:
 def _triangles_occluded(scene, o, d, t_max, cfg) -> torch.Tensor:
     if scene.n_triangles == 0:
         return torch.zeros(o.shape[:-1], dtype=torch.bool, device=o.device)
-    _check_triangle_knobs(cfg)
+    if _leaf_shard(scene, cfg) is not None:
+        from .parallel.leaf_shard import sharded_triangles_occluded
+
+        return sharded_triangles_occluded(scene, o, d, t_max, cfg, cfg.tri_shard_axis)
     if scene.kd is not None and not _prefer_brute(scene, cfg):
         from .ops.traverse import kd_any
 

@@ -326,15 +326,21 @@ def _backend(kd, cfg) -> str:
     the JAX package does not know raises ``ValueError`` (JAX takes its XLA
     walk for it).
     """
+    return resolve_backend(cfg, kd.tre_tbl is not None and kd.top_tbl is not None, kd.node_flag.shape[0])
+
+
+def resolve_backend(cfg, treelets: bool, n_nodes: int) -> str:
+    """``_backend`` for a tree with (``treelets``) or without treelet
+    tables and ``n_nodes`` nodes."""
     be = getattr(cfg, "traversal_backend", "auto")
     if be not in ("auto", "packet", "mega", "forest", "binned", "xla"):
         raise ValueError(f"unknown traversal_backend {be!r}")
     if be in ("auto", "packet"):
         return "packet"
     if be in ("mega", "forest"):
-        if be == "forest" and kd.tre_tbl is not None and kd.top_tbl is not None:
+        if be == "forest" and treelets:
             return "forest"
-        return "binned" if kd.node_flag.shape[0] > MAX_NODES else "mega"
+        return "binned" if n_nodes > MAX_NODES else "mega"
     return be
 
 

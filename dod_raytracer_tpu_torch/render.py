@@ -48,9 +48,13 @@ def _sort_keys(scene, o, d):
     (``render.py:45-82``), bit for bit: a 9-bit direction bin (dominant
     face x 3+3-bit in-face u, v) over a 21-bit Morton code (7 bits an
     axis) of the origin inside the kd world bounds ([-6, 6]^3 without a
-    tree)."""
-    kd = scene.kd
-    if kd is not None:
+    tree).  A leaf-sharded scene keys on the whole scene's bounds, not
+    its shard's, so that every rank of the shard group permutes its rays
+    alike: the hit combine pairs the ranks' rays by position."""
+    kd, shard = scene.kd, getattr(scene, "shard", None)
+    if shard is not None:
+        bmin, bmax = shard.bounds_min, shard.bounds_max
+    elif kd is not None:
         bmin, bmax = kd.bounds_min, kd.bounds_max
     else:
         bmin = torch.full((3,), -6.0, device=o.device)
@@ -101,14 +105,23 @@ def _sort_bounces(scene, cfg, device) -> bool:
     a backend of ``_SORTED_BACKENDS``, off on the CPU and everywhere
     else.  The JAX package's rule differs: it sorts on its accelerator
     for every backend (``dod_raytracer_tpu/render.py:87-91``).  Both
-    sorts are exact permutations, so no rule changes an image."""
+    sorts are exact permutations, so no rule changes an image.
+
+    A leaf-sharded scene resolves the backend once for the whole sharded
+    tree (no treelet tables, every shard's nodes), which every rank of the
+    shard group sees alike; its own shard may resolve otherwise."""
     sort = getattr(cfg, "sort_bounces", None)
     if sort is not None:
         return bool(sort)
-    if torch.device(device).type != "cuda" or scene.kd is None or _prefer_brute(scene, cfg):
+    if torch.device(device).type != "cuda" or scene.kd is None:
         return False
-    from .ops.traverse import _backend
+    from .ops.traverse import _backend, resolve_backend
 
+    shard = getattr(scene, "shard", None)
+    if shard is not None:
+        return resolve_backend(cfg, False, shard.n_nodes) in _SORTED_BACKENDS
+    if _prefer_brute(scene, cfg):
+        return False
     return _backend(scene.kd, cfg) in _SORTED_BACKENDS
 
 
@@ -201,6 +214,21 @@ def _from_block_order(v, h: int, w: int):
     return v.permute(0, 2, 1, 3, 4).reshape(h * w, c)
 
 
+def tile_size(cfg, n: int, device) -> int:
+    """Rays per tile of an ``n``-ray render: ``cfg.ray_tile``, or the
+    automatic size (``_auto_ray_tile``) for 0."""
+    return min(cfg.ray_tile, n) if cfg.ray_tile else _auto_ray_tile(n, device)
+
+
+def render_tiles(scene, cfg, o, d, d_raw, tile: int) -> torch.Tensor:
+    """(N, 3) colors of the rays ``o``, ``d``, ``d_raw``, ``render_rays`` on
+    ``tile`` rays at a time (the last tile may be shorter), without
+    gradient."""
+    with torch.no_grad():
+        return torch.cat([render_rays(scene, o[s:s + tile], d[s:s + tile], d_raw[s:s + tile], cfg)
+                          for s in range(0, o.shape[0], tile)])
+
+
 def frame_rays(cfg, device="cuda"):
     """Frame primary rays padded to a tile multiple: (o, d, d_raw, n, tile).
 
@@ -212,7 +240,7 @@ def frame_rays(cfg, device="cuda"):
     if _block_order(cfg):
         d = _to_block_order(d, cfg.Height, cfg.Width)
         d_raw = _to_block_order(d_raw, cfg.Height, cfg.Width)
-    tile = min(cfg.ray_tile, n) if cfg.ray_tile else _auto_ray_tile(n, device)
+    tile = tile_size(cfg, n, device)
     pad = (-n) % tile
     if pad:
         fill = torch.tensor([[0.0, 0.0, 1.0]], device=device).expand(pad, 3)
@@ -229,10 +257,7 @@ def render_image(scene, cfg: Config, device="cuda") -> torch.Tensor:
     if scene.device.type != device.type:
         raise ValueError(f"scene is on {scene.device}, render_image was asked for {device}")
     o, d, d_raw, n, tile = frame_rays(cfg, scene.device)
-    with torch.no_grad():
-        outs = [render_rays(scene, o[s:s + tile], d[s:s + tile], d_raw[s:s + tile], cfg)
-                for s in range(0, o.shape[0], tile)]
-    colors = torch.cat(outs)[:n]
+    colors = render_tiles(scene, cfg, o, d, d_raw, tile)[:n]
     if _block_order(cfg):
         colors = _from_block_order(colors, cfg.Height, cfg.Width)
     return colors.reshape(cfg.Height, cfg.Width, 3)

@@ -116,6 +116,11 @@ class Scene:
     n_cylinders: int = 0
     n_triangles: int = 0
     n_lights: int = 0
+    # a leaf-sharded scene's rank: triangles and kd hold this rank's shard
+    # only (``parallel.leaf_shard.LeafShard``: its process group, the
+    # shard's place, the whole sharded tree's bounds and size); None for
+    # a scene that holds every triangle
+    shard: Optional[Any] = None
 
     @property
     def device(self) -> torch.device:
@@ -163,9 +168,11 @@ def scene_from_numpy(arrays: dict, device="cuda") -> Scene:
 
 def scene_to_numpy(obj) -> Any:
     """Inverse of ``scene_from_numpy``: nested dict of numpy arrays/ints,
-    with the treelet tables in the JAX package's layout."""
+    with the treelet tables in the JAX package's layout.  A leaf-sharded
+    scene's ``shard`` (its process group) is left out: it has no numpy
+    form and no JAX counterpart."""
     if dataclasses.is_dataclass(obj):
-        out = {f.name: scene_to_numpy(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+        out = {f.name: scene_to_numpy(getattr(obj, f.name)) for f in dataclasses.fields(obj) if f.name != "shard"}
         if isinstance(obj, KDArrays) and out["tre_tbl"] is not None:
             from .accel._kdtree_np import tables_to_jax
 

@@ -36,9 +36,14 @@ def _batch_lights(cfg, device) -> bool:
 
 def _sort_shadow(scene, cfg) -> bool:
     """``cfg.sort_shadow``; None = the JAX package's rule on every
-    device: on over trees of 1,024 or more leaf blocks."""
+    device: on over trees of 1,024 or more leaf blocks.  A leaf-sharded
+    scene counts the blocks of every shard, the same count on every rank
+    of the shard group (whose rays must be permuted alike)."""
     sort = getattr(cfg, "sort_shadow", None)
     if sort is None:
+        shard = getattr(scene, "shard", None)
+        if shard is not None:
+            return shard.n_blocks >= 1024
         kd = scene.kd
         return kd is not None and kd.block_g is not None and kd.block_g.shape[0] >= 1024
     return bool(sort)

@@ -170,8 +170,8 @@ def test_unported_options_raise(default_pair):
     from dod_raytracer_tpu_torch.camera import primary_rays
 
     o, d, raw = primary_rays(8, 4, device="cpu")
-    # only leaf-sharded triangles wait for the distribution slice
-    with pytest.raises(NotImplementedError, match="leaf-sharded"):
+    # leaf-sharded triangles (parallel.leaf_shard) need a scene that carries the axis's process group
+    with pytest.raises(ValueError, match="no process group"):
         T.render_rays(tscene, o, d, raw, T.Config(**FRAME, tri_shard_axis="mp"))
     with pytest.raises(ValueError):
         T.render_image(tscene, T.Config(**FRAME), device="cuda")  # the scene is on the CPU
