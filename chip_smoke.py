@@ -15,6 +15,14 @@ Phases, each printed with its elapsed seconds as it ends:
      mt_closest.cu and plucker_closest.cu (brute force, one split-kernel
      template, brute.cuh, and the per-ray kernels they replaced; both
      sources' whole -Xptxas -v is printed);
+ 2b. the host runtime: both native libraries (native/kdtree_build.cpp,
+     native/objloader.cpp) built with g++ (the phase fails if either does
+     not build: no fallback here); the dragon's SAH tree at config.ini's
+     MaxPrims=8 and at the flagship's MaxPrims=192 by the native builder and
+     by the numpy builder, in turns (native, numpy, native), every
+     array of the two trees bit-equal, and each build's seconds; teapot.obj
+     parsed by both parsers in turns, the vertex coordinates whose bits
+     differ counted; the ``host_runtime`` line;
   3. the reference scene from config.ini (1920x1080): 16 spheres, 6 walls,
      the cylinder, the teapot (6,320 triangles), 9 lights, 10 bounces, with
      the kd-tree shape MaxPrims=96, leaf_chunk_lanes=48;
@@ -135,8 +143,10 @@ Phases, each printed with its elapsed seconds as it ends:
      the vertex grads through the Möller–Trumbore and Plücker kernels
      (brute_threshold=6320) against the kd path's, to rtol 1e-4 (atol
      1e-7, tests/test_grad.py:95-122) but for the elements that the
-     shared-edge excuse of the parity rules allows (EDGE_SHARE of the
-     rays, each reaching at most one triangle a bounce on either path);
+     two inside tests allow (BRUTE_KD_EDGE_SHARE of the rays, each
+     reaching at most one triangle a bounce on either path: the
+     barycentric brute force and the kd walks' edge signs may pick
+     different triangles of a shared edge);
      each kernel launched in the forward and none in the backward;
  19. the teapot fit of BASELINE config 3: ``train.fit`` at 1024x1024 with
      remat_bounces, FIT_STEPS Adam steps of FIT_PARAMS from colors and
@@ -148,11 +158,17 @@ Phases, each printed with its elapsed seconds as it ends:
      ``grad`` line;
  20. the CLI, ``python -m dod_raytracer_tpu_torch.cli`` in a subprocess:
      the teapot frame of config.ini alone (its own kd shape, MaxPrims=8,
-     leaf_chunk_lanes=8, ray_tile=32768) with ``--profile``, its PNG read
-     back by ``io.read_png`` and held to phase 4's frame (u8 channels off by
-     > 1 under 1%), its trace naming scene_build, render, png_write and the
-     packet kernel; then the flagship dragon from a written ini, held to
-     phase 11's frame; the ``cli`` line;
+     leaf_chunk_lanes=8, ray_tile=32768), its PNG read back by
+     ``io.read_png`` and held to phase 4's frame (u8 channels off by > 1
+     under 1%); the same scene at CLI_PROFILE_SIZE with ``--profile``, its
+     trace naming scene_build, render, png_write and the packet kernel; then the flagship dragon from a written ini, held to
+     phase 11's frame; then the dragon with config.ini alone (MaxPrims=8,
+     the shape a user of ``--mesh dragon`` gets), held to phase 11's
+     frame; each run's scene build seconds, its kd tree built by the native
+     builder; the ``cli`` line;
+ 20b. ``examples/inverse_rendering_torch.py`` at its 96x64, 3 bounces, 60
+     Adam steps: its three PNGs, the loss must fall, the albedo and
+     intensity errors printed; the ``inverse_rendering_example`` line;
  21. ``checkpoint.TiledRenderJob`` on the flagship scene, 8 tiles of
      262,144 rays: owner 0 of 2 must leave tiles 0, 2, 4, 6 and no frame;
      the resume with one owner must launch exactly 4 x 10 closest-hit and
@@ -169,7 +185,8 @@ Phases, each printed with its elapsed seconds as it ends:
      (``shading.reversed_rays``) through the packet any-hit walk against
      the plain walk on the first SHADOW_POINTS points per light (bits
      equal) and against the torch brute force on DRAGON_BRUTE_RAYS points
-     per light (the edge excuse), timed in turns with the forward rays of
+     per light (its differing rays against the edge-sign brute force),
+     timed in turns with the forward rays of
      the same points, each beside its ``work_bound``; then the teapot and
      flagship frames with shadow_reverse=True (the dragon sorted by
      direction bin), each against its forward frame: under 2% of pixels
@@ -229,15 +246,22 @@ leaf stage; the per-ray kernels stop at a block's first hit slot, so only
 their any-hit bits are compared).  Brute force is a
 different function, Möller–Trumbore with its barycentric test over every
 triangle (after tests/test_packet.py): there a prim may differ at a tie
-(both candidates' t agree to rtol 1e-5), a hit mask or prim may differ on a
-ray that meets the kernel's or the brute force's triangle within EDGE_EPS
-(barycentric) of an edge, on at most EDGE_SHARE of the rays, where the two
-inside tests disagree on a shared edge; at most 0.001% of the rays may
-differ in their hit mask otherwise, and t agrees to rtol 1e-3 where both
-hit and the ray is not excused.  The Plücker kernel, whose t is num/den,
-is held to brute force with ``tests/test_pallas.py``'s rule: hit masks
-equal and indices equal where both hit, but for ties and EDGE_SHARE of the
-rays at an edge, and t to rtol 1e-4.
+(both candidates' t agree to rtol 1e-5), and every ray whose hit mask or
+prim differs goes through the edge-sign brute force (``ops/triangle.py``
+``edge_sign_brute_closest`` / ``edge_sign_brute_any``: the kernels' own
+leaf test, Plücker edge signs on the rows the kernels test, then the
+Möller–Trumbore t, over every triangle), which the kernel must equal with
+no edge excuse: hit masks and any-hit bits equal, t bit-equal, and a prim
+may differ only where both triangles' Möller–Trumbore t are bit-equal.
+The barycentric side is printed as the reference side: the rays that meet
+the kernel's or the brute force's triangle within EDGE_EPS (barycentric)
+of an edge (``at_edge``); away from an edge at most 0.001% of the rays may
+differ in their hit mask from it, no prim may, and t agrees to rtol 1e-3
+where both hit.  The Plücker kernel, whose t is num/den, is held to brute
+force with ``tests/test_pallas.py``'s rule (hit masks and indices equal
+where both hit, but for ties; t to rtol 1e-4), and its differing rays to
+the edge-sign brute force on its own packed edge rows (hit masks equal, a
+prim different only at bit-equal Möller–Trumbore t, t to rtol 1e-4).
 
 Any failed check raises and the script exits non-zero without a result
 line; so does a run without a CUDA device or without the package beside it.
@@ -247,6 +271,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
+import io
 import json
 import math
 import os
@@ -286,8 +312,11 @@ DRAGON_BRUTE_RAYS = 4096  # of those, the torch brute force's share over 869,952
 MASK_AGREEMENT = 0.99999  # hit masks, away from ties and edges
 T_RTOL = 1e-3  # t where both hit (tests/test_packet.py)
 TIE_RTOL = 1e-5  # a prim may differ at a tie (tests/test_packet.py:49-63)
-EDGE_EPS = 1e-3  # or on a ray that meets a triangle this close to an edge (barycentric units),
-EDGE_SHARE = 1e-3  # on at most this share of the rays (rounded up)
+EDGE_EPS = 1e-3  # barycentric distance from an edge under which a difference from brute force counts as at an edge
+# phase 18 compares gradients through the brute-force path and the kd path: two inside tests
+# (barycentric, edge signs) that may reach different triangles at a shared edge on at most this
+# share of the rays (rounded up); each kernel is held to its own reference with no such excuse
+BRUTE_KD_EDGE_SHARE = 1e-3
 RAY_CHUNK = 32768  # rays per torch brute-force call (bounds its (rays, 2048, 3) temporaries)
 PLUCKER_T_RTOL = 1e-4  # the Plücker kernel's t against brute force (tests/test_pallas.py)
 BRUTE_PARITY_RAYS = 65536  # of the 1080p primary rays, held to the plain versions and brute force
@@ -297,8 +326,9 @@ MT_OPS = 46  # fp32 operations per ray-triangle pair, mt_closest.cu (27 mul, 18 
 PLUCKER_OPS = 46  # plucker_closest.cu (25 mul, 20 add, 1 div)
 U8_TOLERANCE = 0.01  # golden tolerance: fraction of u8 channels off by > 1
 TIMING_REPS = 20  # CUDA-event launches per timing, after 2 warm
-BOUNCE_REPS = 3  # the same, per bounce of a tile's render, after 1 warm
+BOUNCE_REPS = 2  # the same, per bounce of a tile's render, after 1 warm
 SORT_REPS = 3  # frames each with sort_bounces on and off, in turns
+CLI_PROFILE_SIZE = (320, 180)  # phase 20's frame under --profile
 KNOB_REPS = 2  # frames each with bounce_skip, shadow_reverse on and off, in turns (phases 22, 23)
 # card against CPU grads (phase 18).  Their frames differ in rounding (CUDA's and the CPU's torch
 # ops), and at 3 mirror bounces a borderline hit can flip: one pixel of the 64x32 frame on an H100
@@ -320,6 +350,9 @@ LEAF_SHAPES = ((1, 2), (2, 2))  # (dp, mp) gloo worlds sharing the card in phase
 DP_PARAMS = ("spheres", "lights")  # phase 26's 1D step
 DP_TARGET = 0.25  # its target colour (tests/test_sharding.py)
 DIST_TIMEOUT_S = 600.0  # a spawned world of phases 24-26 that runs longer fails the run
+# the numpy builder's scene build of the CLI dragon with config.ini alone (MaxPrims=8) on the host of an
+# H100 machine (scripts/torch_build_time.py --mesh dragon; PERF.md §6), printed beside phase 20's
+NUMPY_DRAGON_INI_BUILD_S = 10.19
 
 _T0 = time.perf_counter()
 
@@ -580,7 +613,7 @@ def grad_phases(torch, dev, dscene, fcfg, flag_s: float, reset_counts, read_coun
 
     # the vertex grads through the brute-force kernels against the kd path's
     kd_verts = card_grads["triangles"].verts
-    edge_elems = math.ceil(EDGE_SHARE * small.Width * small.Height) * 2 * small.recursion_depth * 9
+    edge_elems = math.ceil(BRUTE_KD_EDGE_SHARE * small.Width * small.Height) * 2 * small.recursion_depth * 9
     out["brute_vs_kd"] = {}
     for backend, kernel in (("pallas", "mt_closest"), ("plucker", "plucker_closest")):
         bcfg_ = dataclasses.replace(small, brute_threshold=gscene.n_triangles, triangle_backend=backend)
@@ -752,6 +785,72 @@ def leaf_rank(rank: int, world: int, init: str, shape: tuple, step: bool) -> dic
     return out
 
 
+def host_runtime(card: str) -> dict:
+    """Phase 2b (see the module docstring) -> its numbers; fails if a
+    native library does not build or a tree or a parse differs."""
+    import numpy as np
+
+    from dod_raytracer_tpu_torch import Config, native
+    from dod_raytracer_tpu_torch.accel import _kdtree_np
+    from dod_raytracer_tpu_torch.mesh import load_mesh_asset, load_obj
+    from dod_raytracer_tpu_torch.native import build as native_build
+
+    t0 = time.perf_counter()
+    builds = [native_build.build(name, force=True) for name in native_build.SOURCES]  # raises on a failure
+    for name in native_build.SOURCES:
+        native._load(name)  # raises NativeUnavailable: no silent fallback here
+    out = {"card": card, "builds": {b["name"]: {"seconds": b["seconds"], "path": os.path.relpath(b["path"], ROOT)}
+                                    for b in builds}, "gxx_flags": native_build.GXX_FLAGS}
+    t = time.perf_counter()
+    tv = load_mesh_asset("dragon")[0]
+    out["dragon_load_s"] = time.perf_counter() - t
+    trees = {}
+    for label, cfg in (("config_ini", Config.load(os.path.join(ROOT, "config.ini"))),
+                       ("flagship", Config(**FLAGSHIP))):
+        kw = dict(lane_size=cfg.lane_size, max_prims=cfg.MaxPrims, intersect_cost=float(cfg.IntersectCost),
+                  traversal_cost=float(cfg.TraversalCost), empty_bonus=float(cfg.EmptyBonus))
+        fns = {"native": native.kdtree_native.build, "numpy": _kdtree_np.build}
+        secs, built = {"native": [], "numpy": []}, {}
+        for name in ("native", "numpy", "native"):  # in turns
+            t = time.perf_counter()
+            built[name] = fns[name](tv, **kw)
+            secs[name].append(time.perf_counter() - t)
+        a, b = built["native"], built["numpy"]
+        differ = [f.name for f in dataclasses.fields(a)
+                  if not (np.array_equal(np.asarray(getattr(a, f.name)).view(np.uint8),
+                                         np.asarray(getattr(b, f.name)).view(np.uint8))
+                          if isinstance(getattr(b, f.name), np.ndarray) else getattr(a, f.name) == getattr(b, f.name))]
+        check(not differ, f"dragon tree at MaxPrims={cfg.MaxPrims}: native and numpy differ in {differ}")
+        trees[label] = dict(MaxPrims=cfg.MaxPrims, leaf_chunk_lanes=cfg.leaf_chunk_lanes, nodes=int(a.node_flag.shape[0]),
+                            leaves=int((a.node_flag == _kdtree_np.LEAF_FLAG).sum()), depth=a.max_depth,
+                            lanes=int(a.prim_nums.shape[0]), bit_equal=True, native_s=secs["native"],
+                            numpy_s=secs["numpy"])
+        del built, a, b
+    out["dragon_trees"] = trees
+    path = os.path.join(ROOT, "assets", "teapot.obj")
+    secs, parsed = {"native": [], "python": []}, {}
+    for name in ("native", "python", "python", "native"):
+        t = time.perf_counter()
+        parsed[name] = load_obj(path, use_native=name == "native")
+        secs[name].append(time.perf_counter() - t)
+    (vc, fc, nc), (vp, fp, np_) = parsed["native"], parsed["python"]
+    check(np.array_equal(fc, fp) and vc.shape == vp.shape and (nc is None) == (np_ is None),
+          "teapot.obj: the native parser's faces or shapes differ from the Python parser's")
+    ulps = np.abs(vc.view(np.int32).astype(np.int64) - vp.view(np.int32).astype(np.int64))
+    out["teapot_obj"] = dict(vertices=int(vc.shape[0]), faces=int(fc.shape[0]), coords_differ=int((ulps != 0).sum()),
+                             max_ulps=int(ulps.max()), native_s=secs["native"], python_s=secs["python"])
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"host_runtime": out}), flush=True)
+    log(f"phase 2b host runtime on the host of {card}: g++ {' '.join(native_build.GXX_FLAGS)}: "
+        + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in out["builds"].items())
+        + f"; dragon ({tv.shape[0]} triangles, load {out['dragon_load_s']:.2f} s) trees bit-equal, in turns: "
+        + "; ".join(f"MaxPrims={v['MaxPrims']} ({v['nodes']} nodes) native {json.dumps(v['native_s'])} s, numpy "
+                    f"{json.dumps(v['numpy_s'])} s" for v in trees.values())
+        + f"; teapot.obj {out['teapot_obj']['coords_differ']} coordinates differ (max {out['teapot_obj']['max_ulps']} "
+        f"ulp), native {json.dumps(secs['native'])} s, Python {json.dumps(secs['python'])} s")
+    return out
+
+
 def main(device: str = "cuda") -> int:
     import torch
 
@@ -764,7 +863,8 @@ def main(device: str = "cuda") -> int:
     from dod_raytracer_tpu_torch.ops import _cuda, binned, brute, forest, mega, mt, packet, plucker
     from dod_raytracer_tpu_torch.ops.traverse import (_PLAIN_CHUNK, _backend, _stack_depth, _walk, leaf_plain,
                                                       traverse_forest_plain, traverse_plain)
-    from dod_raytracer_tpu_torch.ops.triangle import (brute_force_closest, mt_single,
+    from dod_raytracer_tpu_torch.ops.triangle import (block_edge_rows, brute_force_closest, edge_sign_brute_any,
+                                                      edge_sign_brute_closest, mt_single, mt_t_edges,
                                                       occluded_triangles_brute)
     from dod_raytracer_tpu_torch.render import _sort_bounces, frame_rays, render_rays
     from dod_raytracer_tpu_torch.shading import _sort_shadow, light_terms, shadow_rays
@@ -873,6 +973,9 @@ def main(device: str = "cuda") -> int:
                                       f"{os.path.relpath(b['path'], ROOT)}" for b in builds)
         + f"; {time.perf_counter() - t:.2f} s wall")
 
+    # ---- 2b. the host runtime: the native kd builder and OBJ parser ----
+    host = host_runtime(card)
+
     # ---- 3. teapot scene ----
     t = time.perf_counter()
     cfg = Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48, ray_tile=0)
@@ -919,8 +1022,7 @@ def main(device: str = "cuda") -> int:
     def allowed(n):
         return math.floor(n * (1.0 - MASK_AGREEMENT))
 
-    def edge_allowed(n):
-        return math.ceil(n * EDGE_SHARE)
+    edge_rows = {}  # verts.data_ptr() -> the (1, 6, 3, T) edge rows of the edge-sign brute force
 
     def brute_closest(verts, o, d):
         parts = [brute_force_closest(verts, o[s:s + RAY_CHUNK], d[s:s + RAY_CHUNK])
@@ -935,6 +1037,14 @@ def main(device: str = "cuda") -> int:
     def mt_t_of(verts, prim, o, d):
         tri = verts[prim.long()]
         return mt_single(tri, o, d, torch.ones(o.shape[0], dtype=torch.bool, device=dev))[0]
+
+    def mt_t_exact(verts, prim, o, d):
+        """The Möller–Trumbore t of triangle ``prim`` for each ray, with
+        the kernels' roundings (``mt_t_edges``), whatever its barycentrics."""
+        tri = verts[prim.long()]
+        A = tri[:, None, 0]
+        return mt_t_edges(A, tri[:, None, 1] - A, tri[:, None, 2] - A, o, d,
+                          torch.ones((o.shape[0], 1), dtype=torch.bool, device=dev))[:, 0]
 
     def closest_refs(kd, verts, depth, o, d, tt, plains, n_brute, brute=brute_closest):
         """Reference (t, prim, hit) of a closest-hit query: each plain walk
@@ -1066,10 +1176,55 @@ def main(device: str = "cuda") -> int:
                 near[hit] |= edge_distance(verts, prim[hit], o[hit], d[hit]) < EDGE_EPS
         return near
 
+    edge_cache = {}  # id(a brute-force reference) -> (it, done, the edge-sign outputs on its rays so far)
+
+    def edge_sign_on(ref, verts, o, d, sel, tm=None):
+        """The edge-sign brute force (the kernels' own leaf test over every
+        triangle, on the edge rows of ``edge_rows[verts]``) on the rays
+        ``sel`` of the query (o, d) whose barycentric reference is ``ref``:
+        closest (t, prim), or with ``tm`` the any-hit bits.  Each ray is
+        computed once, however many kernels ask for it; the chunk of
+        triangles is as wide as keeps a temporary near 16 MB."""
+        c = edge_cache.get(id(ref))
+        if c is None or c[0] is not ref:
+            n = sel.shape[0]
+            c = edge_cache[id(ref)] = (ref, torch.zeros(n, dtype=torch.bool, device=dev),
+                                       torch.full((n,), float("inf"), device=dev),
+                                       torch.zeros(n, dtype=torch.int32, device=dev))
+        _, done, t, idx = c
+        need = sel & ~done
+        k = int(need.sum())
+        if k:
+            g, chunk = edge_rows[verts.data_ptr()], max(2048, min(1 << 17, (1 << 22) // k))
+            if tm is None:
+                t[need], idx[need] = edge_sign_brute_closest(verts, o[need], d[need], g=g, chunk=chunk)
+            else:
+                idx[need] = edge_sign_brute_any(verts, o[need], d[need], tm[need], g=g, chunk=chunk).to(torch.int32)
+            done |= need
+        return (t[sel], idx[sel]) if tm is None else idx[sel].bool()
+
+    def edge_sign_closest(ref, verts, o, d, tt, sel, hk, tk, pk):
+        """The kernel's closest hits (hk, tk, pk) on the rays ``sel`` of the
+        query (o, d) with clip tt against the edge-sign brute force: hit
+        masks equal, t bit-equal where both hit, and a prim may differ
+        only there (a tie of bit-equal Möller–Trumbore t).  -> counts."""
+        r = dict(rays=int(sel.sum()), hits=0, mask_mismatch=0, t_not_exact=0, ties=0)
+        if r["rays"]:
+            te, ie = edge_sign_on(ref, verts, o, d, sel)
+            he = te < tt[sel]
+            hk, tk, pk = hk[sel], tk[sel], pk[sel]
+            both = hk & he
+            r.update(hits=int(he.sum()), mask_mismatch=int((hk != he).sum()),
+                     t_not_exact=int((both & (tk != te)).sum()), ties=int((both & (pk != ie)).sum()))
+        r["equal"] = r["mask_mismatch"] == 0 and r["t_not_exact"] == 0
+        return r
+
     def check_closest(label, kname, out, refs, verts, o, d, tt):
         """The kernel's closest hits against each reference: bit for bit
-        against the plain walks and the other kernels, under the brute-force
-        rule (module docstring) against ``brute``."""
+        against the plain walks and the other kernels; against ``brute``
+        (barycentric), every ray that differs goes through the edge-sign
+        brute force, which the kernel must equal with no edge excuse (module
+        docstring); the barycentric at-edge count is the reference side."""
         tk, pk, fk = out
         hk_all = fk & (tk < tt)
         res = {}
@@ -1091,22 +1246,25 @@ def main(device: str = "cuda") -> int:
                 edge = differ & at_edge(verts, on, dn, differ & hk, pkn, differ & hr, pr)
                 odd = differ & ~edge
                 t_bad = both & ~tie & ~edge & ((tkn - tr).abs() > T_RTOL * tr.abs())
+                es = edge_sign_closest(tr, verts, on, dn, tt[:n], (hk != hr) | flip, hk, tkn, pkn)
                 r.update(ties=int(tie.sum()), at_edge=int(edge.sum()),
                          unexplained_mask=int((odd & (hk != hr)).sum()), unexplained_flips=int((odd & flip).sum()),
-                         t_out_of_rtol=int(t_bad.sum()))
-                ok = (r["at_edge"] <= edge_allowed(n) and r["unexplained_mask"] <= allowed(n)
-                      and r["unexplained_flips"] == 0 and r["t_out_of_rtol"] == 0)
+                         t_out_of_rtol=int(t_bad.sum()), edge_sign=es)
+                ok = (es["equal"] and r["unexplained_mask"] <= allowed(n) and r["unexplained_flips"] == 0
+                      and r["t_out_of_rtol"] == 0)
             res[name] = r
             check(ok, f"{kname} closest parity {label} vs {name}: {r}")
         log(f"phase parity {kname} closest {label}: {json.dumps(res)}")
         return res
 
-    def check_any(label, kname, out, refs, verts, o, d):
+    def check_any(label, kname, out, refs, verts, o, d, tm):
         """The kernel's hit bits against each reference: ``refs[name]`` is
         (prim or None, bits, n) for the first n rays.  Bit for bit against
-        the plain walks and the other kernels; against ``brute``, the
-        mismatches must be at an edge (see ``at_edge``), on at most
-        EDGE_SHARE of the rays, but for the 0.001% allowance."""
+        the plain walks and the other kernels; against ``brute``
+        (barycentric), every ray that differs must have the bit of the
+        edge-sign brute force (the kernels' own leaf test, t_max ``tm``),
+        with no edge excuse; the mismatches away from an edge (see
+        ``at_edge``) stay within the 0.001% allowance."""
         _, pk, fk = out
         res = {}
         for name, (pr, fr, n) in refs.items():
@@ -1120,8 +1278,12 @@ def main(device: str = "cuda") -> int:
                     pr = torch.full((n,), -1, dtype=torch.int32, device=dev)
                     pr[differ] = brute_closest(verts, on[differ], dn[differ])[1].to(torch.int32)
                 edge = differ & at_edge(verts, on, dn, differ & fk[:n], pk[:n], differ & fr, pr)
-                r.update(at_edge=int(edge.sum()), unexplained=int((differ & ~edge).sum()))
-                ok = r["at_edge"] <= edge_allowed(n) and r["unexplained"] <= allowed(n)
+                es = dict(rays=int(differ.sum()), mask_mismatch=0)
+                if es["rays"]:
+                    ea = edge_sign_on(fr, verts, on, dn, differ, tm[:n])
+                    es["mask_mismatch"] = int((ea != fk[:n][differ]).sum())
+                r.update(at_edge=int(edge.sum()), unexplained=int((differ & ~edge).sum()), edge_sign=es)
+                ok = es["mask_mismatch"] == 0 and r["unexplained"] <= allowed(n)
             res[name] = r
             check(ok, f"{kname} any-hit parity {label} vs {name}: {r}")
         log(f"phase parity {kname} any-hit {label}: {json.dumps(res)}")
@@ -1486,6 +1648,7 @@ def main(device: str = "cuda") -> int:
     # ---- 5. teapot parity: packet, per-ray, mega (warp and per-ray) and binned ----
     depth = _stack_depth(kd, cfg)
     verts = scene.triangles.verts
+    edge_rows[verts.data_ptr()] = block_edge_rows(kd, verts.shape[0])  # the very bits the kernels test
     plains = {"plain": traverse_plain}
     o_all, d_all, raw_all, tile, start = best_window(scene, cfg, per_ray, depth)
     o, d, raw = (x[start:start + tile] for x in (o_all, d_all, raw_all))
@@ -1525,14 +1688,14 @@ def main(device: str = "cuda") -> int:
                  "brute": (None, brute_any(verts, so, sd, st), so.shape[0])}
         pr = per_ray(kd, so, sd, st, depth, True)
         parity["packet_traverse_per_ray"][f"any_b{k}"] = check_any(
-            f"bounce {k}", "packet_traverse_per_ray", pr, arefs, verts, so, sd)
+            f"bounce {k}", "packet_traverse_per_ray", pr, arefs, verts, so, sd, st)
         arefs["per_ray"] = (*pr[1:], so.shape[0])
         for kname, walk in (("mega_walk_per_ray", mega.mega_traverse_per_ray), ("packet_traverse", packet_walk),
                             ("mega_walk", mega.mega_traverse)):
             parity[kname][f"any_b{k}"] = check_any(f"bounce {k}", kname, walk(kd, so, sd, st, depth, True), arefs,
-                                                   verts, so, sd)
+                                                   verts, so, sd, st)
         bk = binned.binned_traverse(kd, so, sd, st, depth, True)
-        parity["block_loop"][f"any_b{k}"] = check_any(f"bounce {k}", "binned walk", bk, arefs, verts, so, sd)
+        parity["block_loop"][f"any_b{k}"] = check_any(f"bounce {k}", "binned walk", bk, arefs, verts, so, sd, st)
         check_any_t_prim(f"bounce {k}", bk, {"plain": aplain})
     log("phase 5 parity done")
 
@@ -1691,7 +1854,8 @@ def main(device: str = "cuda") -> int:
             f"{b_ms:.4f} ms ({b_by}), {full_splits} split(s), {hits} hits, exits {json.dumps(full_exits)}; equal to "
             f"its plain version and the per-ray kernel on all {n_f} rays")
         del tk, ik, tie
-    # the Plücker kernel against brute force (tests/test_pallas.py's rule, ties and edges excused)
+    # the Plücker kernel against brute force (tests/test_pallas.py's rule, ties excused), and on every
+    # ray where the two differ, against the edge-sign brute force on its own packed edge rows
     tp, ip = plucker.plucker_closest(gpk, bo, bd)
     tb, ib = brute_force_closest(verts, bo, bd)
     hp, hb = torch.isfinite(tp), torch.isfinite(tb)
@@ -1704,11 +1868,26 @@ def main(device: str = "cuda") -> int:
     differ = (hp != hb) | (flip & ~tie)
     edge = differ & at_edge(verts, bo, bd, differ & hp, ip, differ & hb, ib)
     t_bad = both & ~flip & ((tp - tb).abs() > PLUCKER_T_RTOL * tb.abs())
+    sel = (hp != hb) | flip
+    es = dict(rays=int(sel.sum()), hits=0, mask_mismatch=0, prim_flips=0, ties=0, untied=0, t_out_of_rtol=0)
+    if es["rays"]:
+        so_, sd_ = bo[sel], bd[sel]
+        te, ie = edge_sign_brute_closest(verts, so_, sd_, g=gpk[:3, :6, :n_tri].permute(1, 0, 2)[None])
+        he, hps = torch.isfinite(te), hp[sel]
+        eboth = hps & he
+        eflip = eboth & (ip[sel] != ie)
+        etie = torch.zeros_like(eflip)
+        if bool(eflip.any()):  # both triangles' Möller–Trumbore t, bit-equal
+            etie[eflip] = mt_t_exact(verts, ip[sel][eflip], so_[eflip], sd_[eflip]) == te[eflip]
+        es.update(hits=int(he.sum()), mask_mismatch=int((hps != he).sum()), prim_flips=int(eflip.sum()),
+                  ties=int(etie.sum()), untied=int((eflip & ~etie).sum()),
+                  t_out_of_rtol=int((eboth & ~eflip & ((tp[sel] - te).abs() > PLUCKER_T_RTOL * te.abs())).sum()))
     pres = dict(rays=BRUTE_PARITY_RAYS, hits=int(hb.sum()), mask_mismatch=int((hp != hb).sum()),
                 prim_flips=int(flip.sum()), ties=int(tie.sum()), at_edge=int(edge.sum()),
                 unexplained=int((differ & ~edge).sum()), t_out_of_rtol=int(t_bad.sum()),
-                max_rel_t_err=float(((tp - tb).abs() / tb.abs())[both & ~flip].max()) if bool(both.any()) else 0.0)
-    check(pres["at_edge"] <= edge_allowed(BRUTE_PARITY_RAYS) and pres["unexplained"] == 0
+                max_rel_t_err=float(((tp - tb).abs() / tb.abs())[both & ~flip].max()) if bool(both.any()) else 0.0,
+                edge_sign=es)
+    check(es["mask_mismatch"] == 0 and es["untied"] == 0 and es["t_out_of_rtol"] == 0 and pres["unexplained"] == 0
           and pres["t_out_of_rtol"] == 0, f"plucker_closest vs brute force: {pres}")
     brute_entries["plucker_closest"]["parity_vs_brute_force"] = pres
     log(f"phase 9 plucker_closest vs brute force on {BRUTE_PARITY_RAYS} rays of the parity tile: {json.dumps(pres)}")
@@ -1843,6 +2022,7 @@ def main(device: str = "cuda") -> int:
     # ---- 14. forest and binned parity on the dragon ----
     ddepth = _stack_depth(dkd, fcfg)
     dverts = dscene.triangles.verts
+    edge_rows[dverts.data_ptr()] = block_edge_rows(dkd, dverts.shape[0])
     dplains = {"forest_plain": traverse_forest_plain, "plain": traverse_plain}
     o_all, d_all, raw_all, dtile, wstart = best_window(dscene, fcfg, per_ray, ddepth, DRAGON_PARITY_RAYS)
     w = slice(wstart, wstart + DRAGON_PARITY_RAYS)
@@ -1915,12 +2095,12 @@ def main(device: str = "cuda") -> int:
         aplain = {name: walk(dkd, so, sd, st, ddepth, True) for name, walk in dplains.items()}
         arefs = {name: (*out[1:], so.shape[0]) for name, out in aplain.items()}
         for kname in ("packet_traverse_per_ray", "packet_traverse"):
-            dpar[kname][f"any_b{k}"] = check_any(f"bounce {k}", kname, outs[kname], arefs, dverts, so, sd)
+            dpar[kname][f"any_b{k}"] = check_any(f"bounce {k}", kname, outs[kname], arefs, dverts, so, sd, st)
         arefs["per_ray"] = (*outs["packet_traverse_per_ray"][1:], so.shape[0])
         for kname in ("forest_walk_per_ray", "forest_walk"):
-            dpar[kname][f"any_b{k}"] = check_any(f"bounce {k}", kname, outs[kname], arefs, dverts, so, sd)
+            dpar[kname][f"any_b{k}"] = check_any(f"bounce {k}", kname, outs[kname], arefs, dverts, so, sd, st)
         dpar["block_loop"][f"any_b{k}"] = check_any(f"bounce {k}", "binned walk", outs["block_loop"], arefs,
-                                                    dverts, so, sd)
+                                                    dverts, so, sd, st)
         check_any_t_prim(f"bounce {k}, dragon", outs["block_loop"], aplain)
         del aplain
         so, sd, st = so[sub], sd[sub], st[sub]
@@ -1928,7 +2108,7 @@ def main(device: str = "cuda") -> int:
         for kname, out in outs.items():
             dpar[kname][f"any_b{k}"].update(check_any(
                 f"bounce {k}, {DRAGON_BRUTE_RAYS} points per light", kname, [x[sub] for x in out], brefs,
-                dverts, so, sd))
+                dverts, so, sd, st))
 
     check(bool(dragon_brute), "phase 14 did not time the dragon brute force")
     brute_entries["mt_closest"]["dragon"] = dragon_brute
@@ -2036,7 +2216,9 @@ def main(device: str = "cuda") -> int:
 
     def run_cli(label, args, tmp):
         """``python -m dod_raytracer_tpu_torch.cli`` with ``args`` in a
-        subprocess -> (the seconds it printed, its wall seconds)."""
+        subprocess -> (the seconds it printed, its wall seconds, the scene
+        build seconds it printed); its kd tree must come from the native
+        builder."""
         t = time.perf_counter()
         out = subprocess.run([sys.executable, "-m", "dod_raytracer_tpu_torch.cli", *args], cwd=ROOT,
                              capture_output=True, text=True, timeout=600)
@@ -2044,17 +2226,25 @@ def main(device: str = "cuda") -> int:
         check(out.returncode == 0, f"{label}: the CLI exited {out.returncode}: {out.stderr[-3000:]}")
         m = re.search(r"rendered (\d+)x(\d+) in ([0-9.]+)s \(([0-9.]+) Mprimary-rays/s\) -> ", out.stdout)
         check(m is not None, f"{label}: no 'rendered' line in {out.stdout[-2000:]!r}")
-        return float(m.group(3)), wall
+        b = re.search(r"built the scene in ([0-9.]+)s \(kd builder: (\w+)\)", out.stdout)
+        check(b is not None and b.group(2) == "native", f"{label}: the kd tree was not built natively: {out.stdout!r}")
+        return float(m.group(3)), wall, float(b.group(1))
 
     cli = {}
     with tempfile.TemporaryDirectory() as tmp:
         png, trace_dir = os.path.join(tmp, "cli.png"), os.path.join(tmp, "trace")
-        sec, wall = run_cli("CLI teapot", ["--config", os.path.join(ROOT, "config.ini"), "--seed", "0", "--output",
-                                           png, "--profile", trace_dir], tmp)
+        sec, wall, build = run_cli("CLI teapot", ["--config", os.path.join(ROOT, "config.ini"), "--seed", "0",
+                                                  "--output", png], tmp)
         got = read_png(png)
         check(got.shape == teapot_u8.shape, f"CLI teapot PNG shape {got.shape}")
         off = u8_share(got, teapot_u8)
         check(off < U8_TOLERANCE, f"CLI teapot frame: {off:.4%} of u8 channels off by > 1 from phase 4's frame")
+        # --profile on a smaller frame of the same scene: the profiler's cost per op and a 1080p
+        # trace of about 1 GB would take most of this phase
+        prof_sec, prof_wall, _ = run_cli("CLI teapot, --profile", [
+            "--config", os.path.join(ROOT, "config.ini"), "--seed", "0", "--width", str(CLI_PROFILE_SIZE[0]),
+            "--height", str(CLI_PROFILE_SIZE[1]), "--output", os.path.join(tmp, "cli_profiled.png"),
+            "--profile", trace_dir], tmp)
         trace = os.path.join(trace_dir, "trace.json")
         check(os.path.exists(trace), "CLI teapot: --profile wrote no trace.json")
         named = {n: False for n in ("scene_build", "render", "png_write")}
@@ -2067,26 +2257,67 @@ def main(device: str = "cuda") -> int:
                 for name in re.findall(r'"name":\s*"([^"]*PacketNodes[^"]*)"', text):
                     kernels_named[name[:100]] = kernels_named.get(name[:100], 0) + 1
         check(all(named.values()) and kernels_named, f"CLI trace: phases {named}, packet kernels {kernels_named}")
-        cli["teapot"] = dict(seconds=sec, wall_s=wall, u8_off=off, trace_bytes=os.path.getsize(trace),
-                             phases_named=named, packet_kernels_in_trace=kernels_named,
-                             config="config.ini (MaxPrims=8, leaf_chunk_lanes=8, ray_tile=32768), under --profile")
+        cli["teapot"] = dict(seconds=sec, wall_s=wall, build_s=build, u8_off=off,
+                             config="config.ini (MaxPrims=8, leaf_chunk_lanes=8, ray_tile=32768)",
+                             profiled=dict(size=list(CLI_PROFILE_SIZE), seconds=prof_sec, wall_s=prof_wall,
+                                           trace_bytes=os.path.getsize(trace), phases_named=named,
+                                           packet_kernels_in_trace=kernels_named))
         new_paths["cli_teapot_trace"] = kernels_named
         ini = os.path.join(tmp, "dragon.ini")
         with open(ini, "w") as f:
             f.write("Width: 1920\nHeight: 1080\nMaxPrims: 192\nleaf_chunk_lanes: 48\nray_tile: 0\n")
         png = os.path.join(tmp, "dragon.png")
-        sec, wall = run_cli("CLI dragon", ["--config", ini, "--mesh", "dragon", "--seed", "0", "--output", png], tmp)
+        sec, wall, build = run_cli("CLI dragon", ["--config", ini, "--mesh", "dragon", "--seed", "0", "--output", png],
+                                   tmp)
         got = read_png(png)
         off = u8_share(got, flag_u8)
         check(off < U8_TOLERANCE, f"CLI dragon frame: {off:.4%} of u8 channels off by > 1 from phase 11's frame")
-        cli["dragon"] = dict(seconds=sec, wall_s=wall, u8_off=off, bit_equal=bool((got == flag_u8).all()))
+        cli["dragon"] = dict(seconds=sec, wall_s=wall, build_s=build, u8_off=off, bit_equal=bool((got == flag_u8).all()))
+        # the dragon as a user gets it with config.ini alone: MaxPrims=8, leaf_chunk_lanes=8
+        png = os.path.join(tmp, "dragon_ini.png")
+        sec, wall, build = run_cli("CLI dragon, config.ini", ["--config", os.path.join(ROOT, "config.ini"), "--mesh",
+                                                              "dragon", "--seed", "0", "--output", png], tmp)
+        got = read_png(png)
+        off = u8_share(got, flag_u8)
+        check(off < U8_TOLERANCE, f"CLI dragon frame (config.ini): {off:.4%} of u8 channels off by > 1 from phase 11's")
+        cli["dragon_config_ini"] = dict(seconds=sec, wall_s=wall, build_s=build, u8_off=off,
+                                        numpy_build_s_earlier=NUMPY_DRAGON_INI_BUILD_S)
     cli["phase_s"] = time.perf_counter() - t20
     print(json.dumps({"cli": cli}), flush=True)
-    log(f"phase 20 CLI in a subprocess on {card}: teapot (config.ini, --profile) rendered in "
+    log(f"phase 20 CLI in a subprocess on {card}: teapot (config.ini) rendered in "
         f"{cli['teapot']['seconds']:.3f} s ({cli['teapot']['wall_s']:.1f} s wall), {cli['teapot']['u8_off']:.4%} "
-        f"of u8 channels off by > 1 from phase 4's frame, trace names {named} and packet kernels "
+        f"of u8 channels off by > 1 from phase 4's frame; at {CLI_PROFILE_SIZE[0]}x{CLI_PROFILE_SIZE[1]} with "
+        f"--profile {prof_sec:.3f} s ({prof_wall:.1f} s wall), trace names {named} and packet kernels "
         f"{json.dumps(kernels_named)}; dragon rendered in {cli['dragon']['seconds']:.3f} s "
-        f"({cli['dragon']['wall_s']:.1f} s wall), {cli['dragon']['u8_off']:.4%} off from phase 11's frame")
+        f"({cli['dragon']['wall_s']:.1f} s wall), {cli['dragon']['u8_off']:.4%} off from phase 11's frame; "
+        f"the dragon with config.ini alone (MaxPrims=8) rendered in {cli['dragon_config_ini']['seconds']:.3f} s, "
+        f"{cli['dragon_config_ini']['u8_off']:.4%} off; scenes built by the native kd builder in "
+        f"{cli['teapot']['build_s']:.3f} s (teapot), {cli['dragon']['build_s']:.3f} s (dragon, MaxPrims=192), "
+        f"{cli['dragon_config_ini']['build_s']:.3f} s (dragon, MaxPrims=8; the numpy build took "
+        f"{NUMPY_DRAGON_INI_BUILD_S} s on this machine's host in an earlier run, scripts/torch_build_time.py)")
+
+    # ---- 20b. the inverse-rendering example ----
+    spec = importlib.util.spec_from_file_location("inverse_rendering_torch",
+                                                  os.path.join(ROOT, "examples", "inverse_rendering_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    text = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(text):
+        ex_s, rc = wall_s(torch, lambda: example.main(["--outdir", tmp]))
+        pngs = sorted(os.listdir(tmp))
+    text = text.getvalue()
+    print(text, end="", flush=True)
+    m = re.search(r"loss ([0-9.e+-]+) -> ([0-9.e+-]+) over (\d+) steps", text)
+    a = re.search(r"max albedo error ([0-9.]+), light-intensity error ([0-9.]+)", text)
+    check(rc == 0 and m is not None and a is not None, f"inverse-rendering example: exit {rc}, output {text[-2000:]!r}")
+    check(float(m.group(2)) < float(m.group(1)), f"inverse-rendering example: the loss did not fall: {m.group(0)}")
+    check(pngs == ["initial.png", "recovered.png", "target.png"], f"inverse-rendering example wrote {pngs}")
+    example_out = dict(seconds=ex_s, steps=int(m.group(3)), loss_first=float(m.group(1)), loss_last=float(m.group(2)),
+                       albedo_err=float(a.group(1)), intensity_err=float(a.group(2)))
+    print(json.dumps({"inverse_rendering_example": example_out}), flush=True)
+    log(f"phase 20b examples/inverse_rendering_torch.py on {card} (96x64, 3 bounces, no kd tree, "
+        f"{example_out['steps']} Adam steps): {ex_s:.3f} s, loss {m.group(1)} -> {m.group(2)}, max albedo error "
+        f"{a.group(1)}, light-intensity error {a.group(2)}")
 
     # ---- 21. the resumable tiled render ----
     t21 = time.perf_counter()
@@ -2178,11 +2409,11 @@ def main(device: str = "cuda") -> int:
         po, pd, pt = ro[sel], rd[sel], st[sel]
         plain = traverse_plain(dkd, po, pd, pt, ddepth, True)
         par = check_any(f"reversed, bounce {k}", "packet_traverse", [x[sel] for x in out],
-                        {"plain": (*plain[1:], po.shape[0])}, dverts, po, pd)
+                        {"plain": (*plain[1:], po.shape[0])}, dverts, po, pd, pt)
         par.update(check_any(f"reversed, bounce {k}, {DRAGON_BRUTE_RAYS} points per light", "packet_traverse",
                              [x[sub] for x in out],
                              {"brute": (None, brute_any(dverts, ro[sub], rd[sub], st[sub]), sub.numel())},
-                             dverts, ro[sub], rd[sub]))
+                             dverts, ro[sub], rd[sub], st[sub]))
         fwd_out = packet_walk(dkd, so, sd, st, ddepth, True)
         ms = time_turns(torch, {"reversed": lambda: packet_walk(dkd, ro, rd, st, ddepth, True),
                                 "forward": lambda: packet_walk(dkd, so, sd, st, ddepth, True)}, TIMING_REPS)
@@ -2368,7 +2599,9 @@ def main(device: str = "cuda") -> int:
         f"{forest_s:.3f} s, dragon binned frame {dbin_s:.3f} s, teapot mega frame {mega_s:.3f} s, "
         f"teapot binned frame {binned_s:.3f} s on {card}; binned frames with sort_bounces on and off: "
         f"{json.dumps(binned_sorts)}; dragon fwd+bwd frame {gf['seconds']:.3f} s ({gf['ratio_to_forward']:.3f} x "
-        f"forward), teapot fit {grads['fit']['seconds_per_step']:.3f} s a step")
+        f"forward), teapot fit {grads['fit']['seconds_per_step']:.3f} s a step; dragon kd tree (MaxPrims=8) native "
+        f"{json.dumps(host['dragon_trees']['config_ini']['native_s'])} s, numpy "
+        f"{json.dumps(host['dragon_trees']['config_ini']['numpy_s'])} s, bit-equal")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

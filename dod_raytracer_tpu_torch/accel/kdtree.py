@@ -1,8 +1,10 @@
 """kd-tree build orchestration: host build -> device ``KDArrays``.
 
 Counterpart of ``dod_raytracer_tpu.accel.kdtree``.  The build is host
-pointer-chasing (``_kdtree_np.build``); its output becomes flat tensors on
-the scene's device, plus the blocked leaf layout that the traversals read:
+pointer-chasing, in C++ (``native/kdtree_build.cpp``) when ``g++`` can
+build it, else the numpy builder (``_kdtree_np.build``), the same tree bit
+for bit; its output becomes flat tensors on the scene's device, plus the
+blocked leaf layout that the traversals read:
 
 * ``block_orig`` (B, S): original triangle id per slot of each leaf block
   (S = leaf_chunk_lanes * lane_size), -1 for empty slots;
@@ -25,26 +27,33 @@ import numpy as np
 import torch
 
 from . import _kdtree_np
+from ..native import NativeUnavailable, kdtree_native
 from ..scene import KDArrays
 from ..utils.math import cross
 
 logger = logging.getLogger("dod_raytracer_tpu_torch")
 
 
+def host_build(tri_verts: np.ndarray, cfg):
+    """The SAH tree of ``tri_verts`` under ``cfg`` -> (BuiltKD, builder):
+    the native builder (``native/kdtree_build.cpp``) when its library
+    builds, else the numpy builder; both give the same tree bit for bit.
+    ``builder`` is "native" or "numpy"."""
+    kw = dict(lane_size=cfg.lane_size, max_prims=cfg.MaxPrims, intersect_cost=float(cfg.IntersectCost),
+              traversal_cost=float(cfg.TraversalCost), empty_bonus=float(cfg.EmptyBonus))
+    try:
+        return kdtree_native.build(tri_verts, **kw), "native"
+    except NativeUnavailable:  # logged once at WARNING by native._load
+        return _kdtree_np.build(tri_verts, **kw), "numpy"
+
+
 def build_kdtree(tri_verts: np.ndarray, cfg, device="cuda") -> KDArrays:
-    built = _kdtree_np.build(
-        tri_verts,
-        lane_size=cfg.lane_size,
-        max_prims=cfg.MaxPrims,
-        intersect_cost=float(cfg.IntersectCost),
-        traversal_cost=float(cfg.TraversalCost),
-        empty_bonus=float(cfg.EmptyBonus),
-    )
+    built, builder = host_build(tri_verts, cfg)
     num_lanes_in = (tri_verts.shape[0] + cfg.lane_size - 1) // cfg.lane_size
     logger.info(
-        "kd build: %d tris, %d nodes (%d leaves), depth %d, "
+        "kd build (%s builder): %d tris, %d nodes (%d leaves), depth %d, "
         "%d reordered lanes (dup ratio %.3f)",
-        tri_verts.shape[0], built.node_flag.shape[0],
+        builder, tri_verts.shape[0], built.node_flag.shape[0],
         int((built.node_flag == _kdtree_np.LEAF_FLAG).sum()), built.max_depth,
         built.prim_nums.shape[0],
         built.prim_nums.shape[0] / max(num_lanes_in, 1),

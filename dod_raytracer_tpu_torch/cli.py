@@ -43,6 +43,7 @@ def main(argv=None):
         return 2
     device = torch.device("cpu" if args.cpu else "cuda")
 
+    from . import native
     from .config import Config
     from .io import write_png
     from .render import quantize_u8, render_image
@@ -70,10 +71,12 @@ def main(argv=None):
         prof = torch.profiler.profile(activities=activities)
         prof.start()
 
+    t0 = time.perf_counter()
     with phase("scene_build"):
         mesh = None if args.mesh == "none" else args.mesh
         scene = default_scene(seed=args.seed, cfg=cfg, mesh=mesh).build(cfg, device=device)
         sync()
+    build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     with phase("render"):
         img = render_image(scene, cfg, device=device)
@@ -89,6 +92,9 @@ def main(argv=None):
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
     rays = cfg.Width * cfg.Height
     log_render_stats(rays, dt)
+    if scene.kd is not None:
+        print(f"built the scene in {build_s:.3f}s (kd builder: "
+              f"{'native' if native.loaded('kdtree_build') else 'numpy'})")
     print(f"rendered {cfg.Width}x{cfg.Height} in {dt:.3f}s "
           f"({rays / dt / 1e6:.2f} Mprimary-rays/s) -> {args.output}")
     return 0

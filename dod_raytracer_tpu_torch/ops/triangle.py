@@ -179,12 +179,19 @@ def closest_edges(A, e1, e2, o, d, chunk: int = 2048):
     This is the plain version of the CUDA Möller–Trumbore kernel
     (``ops.mt``), which computes ``mt_t_edges`` with the same roundings.
     """
+    return _closest_over(((base, mt_t_edges(A[None, base:base + chunk], e1[None, base:base + chunk],
+                                            e2[None, base:base + chunk], o, d))  # (N, chunk)
+                          for base in range(0, A.shape[0], chunk)), o)
+
+
+def _closest_over(chunks, o):
+    """The running closest hit over ``chunks`` of (base, t (N, chunk)) ->
+    (t_best (N,), idx (N,) i32; (inf, 0) for a miss); the lowest index
+    wins a tie, within a chunk and across chunks."""
     n = o.shape[0]
     t_best = torch.full((n,), INF, dtype=torch.float32, device=o.device)
     idx_best = torch.zeros((n,), dtype=torch.int32, device=o.device)
-    for base in range(0, A.shape[0], chunk):
-        sl = slice(base, base + chunk)
-        t = mt_t_edges(A[None, sl], e1[None, sl], e2[None, sl], o, d)  # (N, chunk)
+    for base, t in chunks:
         t_c, a = first_min(t)
         better = t_c < t_best
         t_best = torch.where(better, t_c, t_best)
@@ -206,6 +213,70 @@ def intersect_triangles_brute(tris, mesh_colors, o, d, t_max, chunk: int = 2048)
         t_best, idx = brute_force_closest(tris.verts.detach(), o.detach(), d.detach(), chunk)
         hit = t_best < t_max.detach()
     return triangle_hit_attrs(tris, o, d, idx, hit, mesh_colors)
+
+
+def edge_rows(verts):
+    """(T, 3, 3) triangles -> (1, 6, 3, T): rows 0-5 of the edge sections
+    s0..s2 of each triangle, packed as ``accel.kdtree.pack_block_g`` packs
+    a leaf block (the rows ``plucker_inside`` reads)."""
+    from ..accel.kdtree import pack_block_g
+
+    g = pack_block_g(verts[None])  # (1, 16, 5 * Spad)
+    spad = g.shape[2] // 5
+    return g[:, :6, :3 * spad].reshape(1, 6, 3, spad)[..., :verts.shape[0]]
+
+
+def block_edge_rows(kd, num_tris: int):
+    """The same rows read back out of a built tree's ``block_g``: (1, 6, 3,
+    num_tris), each triangle's from a slot of ``block_orig`` that holds it
+    (every triangle lies in some leaf block).  These are the very bits the
+    kernels and the plain walks test."""
+    B, S = kd.block_orig.shape
+    spad = kd.block_g.shape[2] // 5
+    g = kd.block_g[:, :6, :3 * spad].reshape(B, 6, 3, spad)[..., :S]
+    flat = g.permute(1, 2, 0, 3).reshape(6, 3, B * S)
+    orig = kd.block_orig.reshape(-1).long()
+    live = orig >= 0
+    out = torch.zeros((6, 3, num_tris), dtype=g.dtype, device=g.device)
+    out[:, :, orig[live]] = flat[:, :, live]
+    return out[None]
+
+
+def _edge_sign_t(verts, o, d, g=None, chunk: int = 2048):
+    """Yield (base, t (N, chunk)) of every ray against each chunk of the
+    triangles under the kernels' leaf test: ``plucker_inside`` on the edge
+    rows ``g`` ((1, 6, 3, T), default ``edge_rows(verts)``), then
+    ``mt_t_edges`` with ``inside``; +inf where a triangle is not hit."""
+    row = plucker_row(o, d)
+    A = verts[:, 0, :]
+    e1, e2 = verts[:, 1, :] - A, verts[:, 2, :] - A
+    for base in range(0, verts.shape[0], chunk):
+        sl = slice(base, base + chunk)
+        gc = edge_rows(verts[sl]) if g is None else g[..., sl]
+        inside = plucker_inside(row, gc)
+        yield base, mt_t_edges(A[None, sl], e1[None, sl], e2[None, sl], o, d, inside)
+
+
+def edge_sign_brute_closest(verts, o, d, g=None, chunk: int = 2048):
+    """Brute force under the kernels' own leaf test: every triangle
+    (T, 3, 3) through the Plücker edge signs (``plucker_inside`` on rows
+    packed as ``pack_block_g`` packs them, or on ``g`` (1, 6, 3, T)), then
+    the Möller–Trumbore t (``mt_t_edges`` with ``inside``) -> (t_best (N,),
+    idx (N,) i32; (inf, 0) for a miss), the lowest index winning a tie.
+
+    A plain reference for checks, used by no render path: near a shared
+    edge the kd walks and kernels must equal it (ties of bit-equal t
+    aside), where ``brute_force_closest``'s barycentric test may differ."""
+    return _closest_over(_edge_sign_t(verts, o, d, g, chunk), o)
+
+
+def edge_sign_brute_any(verts, o, d, t_max, g=None, chunk: int = 2048) -> torch.Tensor:
+    """The any-hit sibling of ``edge_sign_brute_closest``: (N,) bool, True
+    where some triangle passes the edge signs with 0 < t < t_max."""
+    out = torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
+    for _, t in _edge_sign_t(verts, o, d, g, chunk):
+        out = out | torch.any(t < t_max[:, None], dim=1)
+    return out
 
 
 def occluded_triangles_brute(verts, o, d, t_max, chunk: int = 2048) -> torch.Tensor:
