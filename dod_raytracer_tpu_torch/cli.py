@@ -14,6 +14,8 @@ GPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
 import sys
 import time
@@ -32,7 +34,8 @@ def main(argv=None):
     p.add_argument("--depth", type=int, default=10, help="bounce depth (main.cpp:301)")
     p.add_argument("--cpu", action="store_true", help="render on the CPU (default: the GPU)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler chrome trace (CPU and CUDA activity) into DIR")
+                   help="turn the tracer on and write a torch.profiler chrome trace (CPU and CUDA "
+                        "activity, with the tracer's spans) and the spans and counters (spans.json) into DIR")
     args = p.parse_args(argv)
 
     import torch
@@ -48,7 +51,8 @@ def main(argv=None):
     from .io import write_png
     from .render import quantize_u8, render_image
     from .scene import default_scene
-    from .utils.profiling import log_render_stats, phase
+    from .utils import profiling
+    from .utils.profiling import log_render_stats, span
 
     overrides = {}
     if args.width:
@@ -70,26 +74,34 @@ def main(argv=None):
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=activities)
         prof.start()
+        profiling.enable()
 
-    t0 = time.perf_counter()
-    with phase("scene_build"):
-        mesh = None if args.mesh == "none" else args.mesh
-        scene = default_scene(seed=args.seed, cfg=cfg, mesh=mesh).build(cfg, device=device)
-        sync()
-    build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with phase("render"):
-        img = render_image(scene, cfg, device=device)
-        sync()
-    dt = time.perf_counter() - t0
-    with phase("png_write"):
-        write_png(args.output, quantize_u8(img))
+    try:
+        t0 = time.perf_counter()
+        with span("scene_build"):
+            mesh = None if args.mesh == "none" else args.mesh
+            scene = default_scene(seed=args.seed, cfg=cfg, mesh=mesh).build(cfg, device=device)
+            sync()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with span("render"):
+            img = render_image(scene, cfg, device=device)
+            sync()
+        dt = time.perf_counter() - t0
+        with span("png_write"):
+            write_png(args.output, quantize_u8(img))
+    finally:
+        if prof is not None:
+            profiling.disable()
 
     if prof is not None:
         sync()
         prof.stop()
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        rec = profiling.take()
+        with open(os.path.join(args.profile, "spans.json"), "w") as f:
+            json.dump({"spans": [dataclasses.asdict(s) for s in rec["spans"]], "counters": rec["counters"]}, f)
     rays = cfg.Width * cfg.Height
     log_render_stats(rays, dt)
     if scene.kd is not None:

@@ -17,6 +17,7 @@ from .ops import plane as plane_ops
 from .ops import sphere as sphere_ops
 from .ops import triangle as tri_ops
 from .ops.ray import INF, FamilyHit, Hit, closer, miss_like
+from .utils.profiling import span
 
 
 def _prefer_brute(scene, cfg) -> bool:
@@ -64,28 +65,29 @@ def _closest_triangle(scene, o, d, t_max, cfg):
     walk or brute force.  Discrete, so computed without gradient: the JAX
     package's stop_gradient on the vertices and the rays
     (``intersect.py:44-70``)."""
-    o, d, t_max = o.detach(), d.detach(), t_max.detach()
-    if scene.kd is not None and not _prefer_brute(scene, cfg):
-        from .ops.traverse import kd_closest
+    with span("hit.triangles"):
+        o, d, t_max = o.detach(), d.detach(), t_max.detach()
+        if scene.kd is not None and not _prefer_brute(scene, cfg):
+            from .ops.traverse import kd_closest
 
-        _, idx, hit = kd_closest(scene.kd, scene.triangles, o, d, t_max, cfg)
-        return idx, hit
-    # the brute-force branch, the only one that reads triangle_backend
-    # (the JAX package's intersect.py:54-70); names other than these two
-    # take the torch brute force there too
-    backend = getattr(cfg, "triangle_backend", "jnp")
-    verts = scene.triangles.verts.detach()
-    if backend == "plucker":
-        from .ops.plucker import plucker_closest, plucker_pack
+            _, idx, hit = kd_closest(scene.kd, scene.triangles, o, d, t_max, cfg)
+            return idx, hit
+        # the brute-force branch, the only one that reads triangle_backend
+        # (the JAX package's intersect.py:54-70); names other than these two
+        # take the torch brute force there too
+        backend = getattr(cfg, "triangle_backend", "jnp")
+        verts = scene.triangles.verts.detach()
+        if backend == "plucker":
+            from .ops.plucker import plucker_closest, plucker_pack
 
-        t_best, idx = plucker_closest(plucker_pack(verts), o.contiguous(), d.contiguous())
-    elif backend == "pallas":
-        from .ops.mt import mt_closest, swizzle_tris
+            t_best, idx = plucker_closest(plucker_pack(verts), o.contiguous(), d.contiguous())
+        elif backend == "pallas":
+            from .ops.mt import mt_closest, swizzle_tris
 
-        t_best, idx = mt_closest(swizzle_tris(verts), o.contiguous(), d.contiguous())
-    else:
-        t_best, idx = tri_ops.brute_force_closest(verts, o, d)
-    return idx, t_best < t_max
+            t_best, idx = mt_closest(swizzle_tris(verts), o.contiguous(), d.contiguous())
+        else:
+            t_best, idx = tri_ops.brute_force_closest(verts, o, d)
+        return idx, t_best < t_max
 
 
 def _triangles_closest(scene, o, d, t_max, cfg, saved=None) -> FamilyHit:
@@ -101,25 +103,27 @@ def _triangles_closest(scene, o, d, t_max, cfg, saved=None) -> FamilyHit:
 
         return sharded_triangles_closest(scene, o, d, t_max, cfg, cfg.tri_shard_axis, saved)
     idx, hit = remember(saved, "triangles", lambda: _closest_triangle(scene, o, d, t_max, cfg))
-    return tri_ops.triangle_hit_attrs(scene.triangles, o, d, idx, hit, scene.mesh_colors)
+    with span("hit.attrs"):
+        return tri_ops.triangle_hit_attrs(scene.triangles, o, d, idx, hit, scene.mesh_colors)
 
 
 def _triangles_occluded(scene, o, d, t_max, cfg) -> torch.Tensor:
-    if scene.n_triangles == 0:
-        return torch.zeros(o.shape[:-1], dtype=torch.bool, device=o.device)
-    if _leaf_shard(scene, cfg) is not None:
-        from .parallel.leaf_shard import sharded_triangles_occluded
+    with span("shadow.triangles"):
+        if scene.n_triangles == 0:
+            return torch.zeros(o.shape[:-1], dtype=torch.bool, device=o.device)
+        if _leaf_shard(scene, cfg) is not None:
+            from .parallel.leaf_shard import sharded_triangles_occluded
 
-        return sharded_triangles_occluded(scene, o, d, t_max, cfg, cfg.tri_shard_axis)
-    if scene.kd is not None and not _prefer_brute(scene, cfg):
-        from .ops.traverse import kd_any
+            return sharded_triangles_occluded(scene, o, d, t_max, cfg, cfg.tri_shard_axis)
+        if scene.kd is not None and not _prefer_brute(scene, cfg):
+            from .ops.traverse import kd_any
 
-        return kd_any(scene.kd, scene.triangles, o, d, t_max, cfg)
-    # any-hit never reads triangle_backend: the JAX package has no any-hit
-    # brute-force kernel; no gradient, as JAX's stop_gradient (intersect.py:86)
-    with torch.no_grad():
-        return tri_ops.occluded_triangles_brute(scene.triangles.verts.detach(), o.detach(), d.detach(),
-                                                t_max.detach())
+            return kd_any(scene.kd, scene.triangles, o, d, t_max, cfg)
+        # any-hit never reads triangle_backend: the JAX package has no any-hit
+        # brute-force kernel; no gradient, as JAX's stop_gradient (intersect.py:86)
+        with torch.no_grad():
+            return tri_ops.occluded_triangles_brute(scene.triangles.verts.detach(), o.detach(), d.detach(),
+                                                    t_max.detach())
 
 
 def closest_families(scene, o, d, cfg, t_max) -> FamilyHit:
@@ -127,16 +131,17 @@ def closest_families(scene, o, d, cfg, t_max) -> FamilyHit:
     cylinder); ``minimum(result.t, t_max)`` is the clip the triangle
     query receives in ``closest_hit``."""
     eps = cfg.Epsilon
-    best = sphere_ops.intersect_spheres(scene.spheres, o, d, t_max)
-    best = closer(best, plane_ops.intersect_planes(scene.planes, o, d, torch.minimum(best.t, t_max), eps))
-    return closer(
-        best,
-        cyl_ops.intersect_cylinders(
-            scene.cylinders, o, d, torch.minimum(best.t, t_max), eps,
-            color_bug=cfg.replicate_reference_bugs,
-            n_valid=scene.n_cylinders,
-        ),
-    )
+    with span("hit.families"):
+        best = sphere_ops.intersect_spheres(scene.spheres, o, d, t_max)
+        best = closer(best, plane_ops.intersect_planes(scene.planes, o, d, torch.minimum(best.t, t_max), eps))
+        return closer(
+            best,
+            cyl_ops.intersect_cylinders(
+                scene.cylinders, o, d, torch.minimum(best.t, t_max), eps,
+                color_bug=cfg.replicate_reference_bugs,
+                n_valid=scene.n_cylinders,
+            ),
+        )
 
 
 def closest_hit(scene, o, d, cfg, t_max=None, saved=None) -> Hit:
@@ -147,21 +152,22 @@ def closest_hit(scene, o, d, cfg, t_max=None, saved=None) -> Hit:
     if t_max is None:
         t_max = torch.full((n,), INF, dtype=torch.float32, device=o.device)
     best = closest_families(scene, o, d, cfg, t_max)
-    best = closer(best, _triangles_closest(scene, o, d, torch.minimum(best.t, t_max), cfg, saved))
-
-    mask = best.t < t_max
-    t_safe = torch.where(mask, best.t, 0.0)
-    point = o + d * t_safe[:, None]
-    return Hit(t=best.t, point=point, normal=best.normal, color=best.color, mask=mask)
+    tri = _triangles_closest(scene, o, d, torch.minimum(best.t, t_max), cfg, saved)
+    with span("render.blend"):
+        best = closer(best, tri)
+        mask = best.t < t_max
+        t_safe = torch.where(mask, best.t, 0.0)
+        point = o + d * t_safe[:, None]
+        return Hit(t=best.t, point=point, normal=best.normal, color=best.color, mask=mask)
 
 
 def occluded_families(scene, o, d, t_max, cfg) -> torch.Tensor:
     """Any-hit over the non-triangle families only."""
     eps = cfg.Epsilon
-    blocked = sphere_ops.occluded_spheres(scene.spheres, o, d, t_max)
-    blocked = blocked | plane_ops.occluded_planes(scene.planes, o, d, t_max, eps)
-    blocked = blocked | cyl_ops.occluded_cylinders(scene.cylinders, o, d, t_max, eps, n_valid=scene.n_cylinders)
-    return blocked
+    with span("shadow.families"):
+        blocked = sphere_ops.occluded_spheres(scene.spheres, o, d, t_max)
+        blocked = blocked | plane_ops.occluded_planes(scene.planes, o, d, t_max, eps)
+        return blocked | cyl_ops.occluded_cylinders(scene.cylinders, o, d, t_max, eps, n_valid=scene.n_cylinders)
 
 
 def occluded_triangles(scene, o, d, t_max, cfg) -> torch.Tensor:

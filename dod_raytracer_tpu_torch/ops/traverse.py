@@ -50,6 +50,7 @@ from __future__ import annotations
 import torch
 
 from ..accel._kdtree_np import LEAF_FLAG, MAX_NODES, TOP_LEAF_FLAG
+from ..utils import profiling
 from .aabb import slab_test
 from .ray import INF
 from .triangle import mt_t_edges, plucker_inside, plucker_row
@@ -345,6 +346,9 @@ def resolve_backend(cfg, treelets: bool, n_nodes: int) -> str:
 
 
 def _traverse(kd, o, d, t_max, cfg, any_hit: bool):
+    """The one door to every backend's walk: the span ``kd.closest`` or
+    ``kd.any`` and the counter ``kd.lanes.<mode>`` of the lanes handed to
+    the walk, dead lanes (t_max < 0) included."""
     be = _backend(kd, cfg)
     if be == "packet":
         from .packet import packet_traverse as walk
@@ -356,9 +360,12 @@ def _traverse(kd, o, d, t_max, cfg, any_hit: bool):
         from .binned import binned_traverse as walk
     else:
         walk = traverse_xla
-    o, d = o.contiguous(), d.contiguous()
-    t_max = t_max.to(torch.float32).contiguous()
-    return walk(kd, o, d, t_max, _stack_depth(kd, cfg), any_hit)
+    name, lanes = ("kd.any", "kd.lanes.any") if any_hit else ("kd.closest", "kd.lanes.closest")
+    profiling.count(lanes, o.shape[0])
+    with profiling.span(name):
+        o, d = o.contiguous(), d.contiguous()
+        t_max = t_max.to(torch.float32).contiguous()
+        return walk(kd, o, d, t_max, _stack_depth(kd, cfg), any_hit)
 
 
 @torch.no_grad()

@@ -21,6 +21,7 @@ import torch
 
 from .intersect import occluded, occluded_families, occluded_triangles, remember
 from .utils.math import sqrt
+from .utils.profiling import span
 
 AMBIENT = 0.2  # main.cpp:158
 SPECULAR_POW = 7.0  # main.cpp:178
@@ -85,19 +86,20 @@ def shadow_rays(scene, points, active=None, relevant=None):
     ``active`` (N,) or by ``relevant`` (N, L): -1 makes every occlusion
     test reject them at once.
     """
-    lp = scene.lights.position  # (L, 3)
-    L, n = lp.shape[0], points.shape[0]
-    to_light = lp[:, None, :] - points[None, :, :]  # (L, N, 3)
-    dist = sqrt(torch.sum(to_light * to_light, dim=-1))  # (L, N)
-    ldir = to_light / torch.clamp_min(dist, 1e-30)[..., None]
-    o = points[None, :, :] + ldir * SHADOW_OFFSET
-    kill = torch.zeros((L, n), dtype=torch.bool, device=points.device)
-    if active is not None:
-        kill = kill | ~active[None, :]
-    if relevant is not None:
-        kill = kill | ~relevant.T
-    dist = torch.where(kill, -1.0, dist)
-    return o.reshape(L * n, 3), ldir.reshape(L * n, 3), dist.reshape(L * n)
+    with span("shade.rays"):
+        lp = scene.lights.position  # (L, 3)
+        L, n = lp.shape[0], points.shape[0]
+        to_light = lp[:, None, :] - points[None, :, :]  # (L, N, 3)
+        dist = sqrt(torch.sum(to_light * to_light, dim=-1))  # (L, N)
+        ldir = to_light / torch.clamp_min(dist, 1e-30)[..., None]
+        o = points[None, :, :] + ldir * SHADOW_OFFSET
+        kill = torch.zeros((L, n), dtype=torch.bool, device=points.device)
+        if active is not None:
+            kill = kill | ~active[None, :]
+        if relevant is not None:
+            kill = kill | ~relevant.T
+        dist = torch.where(kill, -1.0, dist)
+        return o.reshape(L * n, 3), ldir.reshape(L * n, 3), dist.reshape(L * n)
 
 
 def reversed_rays(scene, d):
@@ -108,9 +110,10 @@ def reversed_rays(scene, d):
     (0, t_max) the segment is the forward one in exact arithmetic; f32
     rounds the reversed intersection otherwise, so a grazing occluder can
     flip."""
-    lp = scene.lights.position
-    o = lp.repeat_interleave(d.shape[0] // lp.shape[0], dim=0) + d * SHADOW_OFFSET
-    return o, -d
+    with span("shade.rays"):
+        lp = scene.lights.position
+        o = lp.repeat_interleave(d.shape[0] // lp.shape[0], dim=0) + d * SHADOW_OFFSET
+        return o, -d
 
 
 @torch.no_grad()
@@ -141,10 +144,14 @@ def light_visibility(scene, points, cfg, active=None, relevant=None) -> torch.Te
             qo, qd = reversed_rays(scene, d)
             query, key_rule = occluded_triangles, _reversed_key
         if _sort_shadow(scene, cfg):
-            # the key is computed on the forward rays in both rules
-            perm = _shadow_perm(scene, o, d, t, scene.lights.position.shape[0], key_rule)
-            blocked = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
-            blocked[perm] = query(scene, qo[perm], qd[perm], t[perm], cfg)
+            with span("shade.sort"):
+                # the key is computed on the forward rays in both rules
+                perm = _shadow_perm(scene, o, d, t, scene.lights.position.shape[0], key_rule)
+                qo, qd, qt = qo[perm], qd[perm], t[perm]
+                blocked = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
+            sorted_blocked = query(scene, qo, qd, qt, cfg)
+            with span("shade.sort"):
+                blocked[perm] = sorted_blocked
         else:
             blocked = query(scene, qo, qd, t, cfg)
         if family is not None:
@@ -197,11 +204,13 @@ def lighting_factor(scene, points, normals, pixel_dirs, cfg, active=None, saved=
     points detached; ``saved`` keeps its bits for a bounce's recompute
     (``intersect.remember``).
     """
-    shade, dist_factor = light_terms(scene, points, normals, pixel_dirs)
-    relevant = shade.detach() > 0.0  # (N, L)
+    with span("shade.terms"):
+        shade, dist_factor = light_terms(scene, points, normals, pixel_dirs)
+        relevant = shade.detach() > 0.0  # (N, L)
     visible = remember(saved, "visible", lambda: light_visibility(
         scene, points.detach(), cfg, active, relevant))  # (N, L)
-    if active is not None:
-        visible = visible & active[:, None]
-    per_light = torch.where(visible, shade * dist_factor, 0.0)
-    return AMBIENT + torch.sum(per_light, dim=-1)
+    with span("shade.terms"):
+        if active is not None:
+            visible = visible & active[:, None]
+        per_light = torch.where(visible, shade * dist_factor, 0.0)
+        return AMBIENT + torch.sum(per_light, dim=-1)

@@ -18,6 +18,7 @@ import torch
 
 from .checkpoint import restore_scene_params, save_scene_params
 from .grad import from_leaves, leaves, merge_params, mse_loss, split_float_params
+from .utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -49,20 +50,23 @@ def make_update_fn(cfg, params: Sequence[str], loss_fn: Optional[Callable] = Non
     loss_fn = loss_fn or (lambda scene, target: mse_loss(scene, target, cfg))
 
     def update(scene, opt_state, target):
-        diff = split_float_params(scene, params)
-        tensors = opt_state.param_groups[0]["params"]
-        with torch.no_grad():
-            for p, x in zip(tensors, leaves(diff)):
-                p.copy_(x)
-        opt_state.zero_grad(set_to_none=True)
-        loss = loss_fn(merge_params(scene, from_leaves(diff, tensors)), target)
-        loss.backward()
-        for p in tensors:  # a parameter the loss did not reach: a zero gradient, as in optax
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        opt_state.step()
-        stepped = from_leaves(diff, [p.detach().clone() for p in tensors])
-        return loss.detach(), merge_params(scene, stepped), opt_state
+        with span("train.forward"):
+            diff = split_float_params(scene, params)
+            tensors = opt_state.param_groups[0]["params"]
+            with torch.no_grad():
+                for p, x in zip(tensors, leaves(diff)):
+                    p.copy_(x)
+            opt_state.zero_grad(set_to_none=True)
+            loss = loss_fn(merge_params(scene, from_leaves(diff, tensors)), target)
+        with span("train.backward"):
+            loss.backward()
+            for p in tensors:  # a parameter the loss did not reach: a zero gradient, as in optax
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        with span("train.optim"):
+            opt_state.step()
+            stepped = from_leaves(diff, [p.detach().clone() for p in tensors])
+            return loss.detach(), merge_params(scene, stepped), opt_state
 
     return update
 

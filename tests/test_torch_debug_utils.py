@@ -4,8 +4,8 @@
 ``checked`` (a dispatch mode in place of ``checkify``) raises at the
 first op that makes a NaN or inf, intermediates included;
 ``assert_finite_tree`` names a bad leaf of a port ``Scene`` by its path;
-``phase`` accumulates wall time and ``log_render_stats`` returns JAX's
-record.
+the tracer's ``take()`` returns and clears what it recorded, and
+``log_render_stats`` returns JAX's record.
 """
 
 import time
@@ -64,18 +64,27 @@ def test_assert_finite_tree_names_the_leaf():
         tdebug.assert_finite_tree({"a": torch.tensor([1.0, float("inf")])})
 
 
-def test_phase_accumulates_wall_time():
-    tprof.reset_phase_times()
-    for _ in range(2):
-        with tprof.phase("render"):
-            time.sleep(0.01)
-    slow = tprof.annotate("png_write")(lambda: time.sleep(0.01) or 7)
-    assert slow() == 7
-    times = tprof.phase_times()
-    assert set(times) == {"render", "png_write"}
-    assert times["render"] >= 0.02 and times["png_write"] >= 0.01
-    tprof.reset_phase_times()
-    assert tprof.phase_times() == {}
+def test_take_returns_and_clears_spans_and_counters():
+    """The tracer's ``take()``: the spans (nested, with their attributes)
+    and counters since ``enable()``, and nothing the second time."""
+    tprof.take()
+    tprof.enable()
+    try:
+        with tprof.span("render.frame"):
+            with tprof.span("render.tile", tile=3):
+                time.sleep(0.001)
+        tprof.count("kd.lanes.any", 5)
+        tprof.count("kd.lanes.any", 7)
+    finally:
+        tprof.disable()
+    got = tprof.take()
+    frame, tile = got["spans"]
+    assert (frame.name, frame.parent, tile.name, tile.parent, tile.attrs) == (
+        "render.frame", -1, "render.tile", 0, {"tile": 3})
+    assert frame.start_ns <= tile.start_ns < tile.end_ns <= frame.end_ns
+    assert tile.end_ns - tile.start_ns >= 1_000_000
+    assert got["counters"] == {"kd.lanes.any": 12}
+    assert tprof.take() == {"spans": [], "counters": {}}
 
 
 @pytest.mark.parametrize("casts", [None, 12345])
