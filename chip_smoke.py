@@ -14,7 +14,8 @@ Phases, each printed with its elapsed seconds as it ends:
      kernel it replaced), binned_descend.cu (the binned walk's descend round),
      mt_closest.cu and plucker_closest.cu (brute force, one split-kernel
      template, brute.cuh, and the per-ray kernels they replaced; both
-     sources' whole -Xptxas -v is printed);
+     sources' whole -Xptxas -v is printed), families_any.cu (the shadow
+     rays' sphere, plane and cylinder any-hit; its whole -Xptxas -v);
  2b. the host runtime: both native libraries (native/kdtree_build.cpp,
      native/objloader.cpp) built with g++ (the phase fails if either does
      not build: no fallback here); the dragon's SAH tree at config.ini's
@@ -40,13 +41,20 @@ Phases, each printed with its elapsed seconds as it ends:
      bounce of the ray tile whose primary rays hit the teapot most, and on
      the shadow rays of those bounces; the mega walks and the binned walk
      also against the per-ray packet walk, the mega warp walk against the
-     packet walk on the same tree;
+     packet walk on the same tree; the families' any-hit kernel against its
+     plain version on the card, bit for bit, on every shadow wavefront
+     these parity walks hand it (here and in phases 14, 23 and 25);
   6. the packet and mega warp walks' time per launch at the main path's
      shapes, each in turns with the per-ray walk it replaced, the plain
      walk's time on the same inputs, and the least time the card could
      take (see ``kernel_entry`` and ``work_bound``: the bytes these inputs
      make the kernel read over 3.35 TB/s, or the fp32 operations of its
-     leaf tests over 67 TFLOP/s, whichever is larger); then all four walks
+     leaf tests over 67 TFLOP/s, whichever is larger); the families'
+     any-hit kernel at the benchmark frame's shape (the 9,331,200 shadow
+     lanes of bounce 0 of a 1,036,800-ray tile) in turns with its plain
+     version, its launches in phase 4's frame and its bound (29 bytes a
+     lane over 3.35 TB/s, or its operations with no early exit over 67
+     TFLOP/s, whichever is larger: ``families_entry``); then all four walks
      per bounce over every traversal launch of one tile's render, with the
      bounce sort on and off (``per_bounce``);
   7. the teapot frame with traversal_backend='mega' (the mega warp walk),
@@ -300,8 +308,11 @@ KERNELS = {  # kernel -> (source in the repo, the TPU kernel it replaces)
                    "dod_raytracer_tpu/ops/pallas/mt_kernel.py:118"),
     "plucker_closest": ("dod_raytracer_tpu_torch/csrc/plucker_closest.cu",
                         "dod_raytracer_tpu/ops/pallas/plucker_kernel.py:117"),
+    # the shadow rays' sphere, plane and cylinder tests: XLA in the JAX package, no Pallas kernel
+    "families_any": ("dod_raytracer_tpu_torch/csrc/families_any.cu", "dod_raytracer_tpu/intersect.py:123"),
 }
-SOURCES = ["packet_traverse", "kd_walk", "block_loop", "binned_descend", "mt_closest", "plucker_closest"]
+SOURCES = ["packet_traverse", "kd_walk", "block_loop", "binned_descend", "mt_closest", "plucker_closest",
+           "families_any"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 LATER_BOUNCE = 3
@@ -324,6 +335,11 @@ BRUTE_FRAME = dict(Width=480, Height=270, ray_tile=16384, brute_threshold=6320) 
 BINNED_SORT_LIMIT = 20.0  # seconds: a dragon binned frame under this is timed with sort_bounces on and off
 MT_OPS = 46  # fp32 operations per ray-triangle pair, mt_closest.cu (27 mul, 18 add, 1 rcp)
 PLUCKER_OPS = 46  # plucker_closest.cu (25 mul, 20 add, 1 div)
+# fp32 operations of families_any.cu's tests with no early exit: a sphere 19 (15, and 4 more past the
+# closest-approach test), a plane 14, a cylinder 113 (body 67, each cap 23)
+FAMILY_OPS = {"sphere": 19, "plane": 14, "cylinder": 113}
+FAMILY_LANE_BYTES = 29  # o, d, t_max read (28 B), one bool written
+FAMILY_TILE = 1036800  # the benchmark frame's ray tile (gpubench/configs/teapot-ref.json)
 U8_TOLERANCE = 0.01  # golden tolerance: fraction of u8 channels off by > 1
 TIMING_REPS = 20  # CUDA-event launches per timing, after 2 warm
 BOUNCE_REPS = 2  # the same, per bounce of a tile's render, after 1 warm
@@ -860,7 +876,7 @@ def main(device: str = "cuda") -> int:
 
     from dod_raytracer_tpu_torch import Config, default_scene, quantize_u8, render_image
     from dod_raytracer_tpu_torch.intersect import closest_families, closest_hit, occluded_families
-    from dod_raytracer_tpu_torch.ops import _cuda, binned, brute, forest, mega, mt, packet, plucker
+    from dod_raytracer_tpu_torch.ops import _cuda, binned, brute, families, forest, mega, mt, packet, plucker
     from dod_raytracer_tpu_torch.ops.traverse import (_PLAIN_CHUNK, _backend, _stack_depth, _walk, leaf_plain,
                                                       traverse_forest_plain, traverse_plain)
     from dod_raytracer_tpu_torch.ops.triangle import (block_edge_rows, brute_force_closest, edge_sign_brute_any,
@@ -880,6 +896,8 @@ def main(device: str = "cuda") -> int:
     packet_walk = packet.packet_traverse  # the frame's kernel
     counters = kernel_counters()
     BINNED = ("block_loop", "binned_descend")  # the binned walk's two kernels
+    family_launches = {}  # frame path -> launches of the families' any-hit kernel in its timed frame
+    family_parity = {"calls": 0, "lanes": 0, "blocked": 0}  # the kernel vs its plain version, every lane equal
 
     def reset_counts():
         reset_launches(counters)
@@ -895,8 +913,11 @@ def main(device: str = "cuda") -> int:
         by mode, or by kernel and mode for a tuple)."""
         kernels_of = () if only is None else ((only,) if isinstance(only, str) else tuple(only))
         reset_counts()
+        families.reset_launches()
         seconds, img = wall_s(torch, lambda: render_image(scene, cfg, device=dev))
         counts = read_counts()
+        family_launches[path] = families.launches["any"]
+        check(family_launches[path] > 0, f"{path}: the families' any-hit kernel did not launch")
         check(all(counts[k][m] > 0 for k in kernels_of for m in modes),
               f"{path}: {only} not launched in modes {modes}: {counts}")
         check(all(sum(c.values()) == 0 for k, c in counts.items() if k not in kernels_of),
@@ -960,7 +981,7 @@ def main(device: str = "cuda") -> int:
     builds = _cuda.build_all(SOURCES, force=True)
     for b in builds:
         for line in b["log"].splitlines():
-            if b["name"] in ("packet_traverse", "kd_walk", "mt_closest", "plucker_closest") \
+            if b["name"] in ("packet_traverse", "kd_walk", "mt_closest", "plucker_closest", "families_any") \
                     or "registers" in line or "spill" in line \
                     or "stack frame" in line:
                 print(f"  ptxas {b['name']}:", line.strip(), flush=True)
@@ -969,6 +990,7 @@ def main(device: str = "cuda") -> int:
     for module in (packet, mega, binned, mt, plucker):
         module._fn_per_ray()
     binned._fn_descend()
+    families._fn()
     log("phase 2 build: " + ", ".join(f"{b['name']}.cu nvcc {b['seconds']:.2f} s -> "
                                       f"{os.path.relpath(b['path'], ROOT)}" for b in builds)
         + f"; {time.perf_counter() - t:.2f} s wall")
@@ -1001,7 +1023,8 @@ def main(device: str = "cuda") -> int:
     pixels = cfg.Width * cfg.Height
     log(f"phase 4 frames (sort_bounces={sort_default} by default, sort_shadow={_sort_shadow(scene, cfg)}): "
         f"seconds {json.dumps(teapot_frames[0])}, u8 channels off by > 1 from the default frame "
-        f"{json.dumps(teapot_frames[1])}, launches {json.dumps(teapot_frames[2])}; "
+        f"{json.dumps(teapot_frames[1])}, launches {json.dumps(teapot_frames[2])}, families_any launches by "
+        f"frame {json.dumps(family_launches)}; "
         f"{pixels / frame_s:.0f} primary rays/s, mean {mean:.4f}")
 
     # a small frame on the card (kernel) against the CPU path (plain walk)
@@ -1331,11 +1354,54 @@ def main(device: str = "cuda") -> int:
             if k in wanted:
                 shade, _ = light_terms(scene, hit.point[:n_pts], hit.normal[:n_pts], raw[:n_pts])
                 so, sd, st = shadow_rays(scene, hit.point[:n_pts], active[:n_pts], shade > 0.0)
-                st = torch.where(occluded_families(scene, so, sd, st, cfg), -1.0, st)
+                fam = occluded_families(scene, so, sd, st, cfg)
+                check_families(scene, (so, sd, st), fam, cfg, f"bounce {k}")
+                st = torch.where(fam, -1.0, st)
                 yield k, (o, d, t_tri), (so.contiguous(), sd.contiguous(), st.contiguous())
             d_new = reflect(d, hit.normal)
             o = torch.where(active[:, None], hit.point + d_new * cfg.Epsilon, o)
             d = torch.where(active[:, None], d_new, d)
+
+    def check_families(scene, inputs, got, cfg, label):
+        """The families' any-hit kernel's bits ``got`` on ``inputs`` against
+        its plain version on the card: every lane equal."""
+        ref = families.occluded_plain(scene, *inputs, cfg.Epsilon)
+        differ = int((got != ref).sum())
+        check(differ == 0, f"families_any {label}: {differ} of {got.shape[0]} lanes differ from the plain version")
+        family_parity["calls"] += 1
+        family_parity["lanes"] += got.shape[0]
+        family_parity["blocked"] += int(ref.sum())
+
+    def families_entry(scene, cfg, o_all, d_all, raw_all, launches):
+        """The families' any-hit kernel at the benchmark frame's shape: the
+        shadow wavefront of bounce 0 of the frame's first ``FAMILY_TILE``
+        rays, timed in turns with its plain version -> one entry of the
+        ``kernels`` line."""
+        n = min(FAMILY_TILE, o_all.shape[0])
+        o, d, raw = o_all[:n], d_all[:n], raw_all[:n]
+        hit = closest_hit(scene, o, d, cfg)
+        shade, _ = light_terms(scene, hit.point, hit.normal, raw)
+        so, sd, st = (x.contiguous() for x in shadow_rays(scene, hit.point, hit.mask, shade > 0.0))
+        del hit, shade
+        eps = cfg.Epsilon
+        turns = time_turns(torch, {"kernel": lambda: families.occluded_any(scene, so, sd, st, eps),
+                                   "plain": lambda: families.occluded_plain(scene, so, sd, st, eps)}, TIMING_REPS)
+        check_families(scene, (so, sd, st), families.occluded_any(scene, so, sd, st, eps), cfg, "timing lanes")
+        lanes = so.shape[0]
+        n_cyl = min(scene.n_cylinders, scene.cylinders.base.shape[0])
+        ops = lanes * (scene.spheres.center.shape[0] * FAMILY_OPS["sphere"]
+                       + scene.planes.point.shape[0] * FAMILY_OPS["plane"] + n_cyl * FAMILY_OPS["cylinder"])
+        nbytes = lanes * FAMILY_LANE_BYTES
+        bound_ms, bound_by = bound(nbytes, ops)
+        source, replaces = KERNELS["families_any"]
+        entry = dict(name="families_any[any]", route="cuda", source=source, replaces=replaces, launches=launches,
+                     max_abs_err=0.0, ms=turns["kernel"], plain_ms=turns["plain"], bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=None, rays=lanes, bytes=nbytes, operations=ops,
+                     killed=int((st < 0).sum()), parity=dict(family_parity))
+        log(f"phase times families_any[any]: {lanes} lanes, kernel {entry['ms']:.4f} ms/launch, plain "
+            f"{entry['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, {ops} operations "
+            f"with no early exit), {entry['killed']} lanes killed; parity so far {json.dumps(family_parity)}")
+        return entry
 
     def work_bound(walk, kd, inputs, depth, any_hit, nodes_bytes):
         """The least time the card could take for the work that the per-ray
@@ -1711,6 +1777,7 @@ def main(device: str = "cuda") -> int:
                 name, mode, kd, timing_inputs[mode], depth, launches, plain_err(par, mode, plains),
                 nodes_bytes, dict(scene="teapot", parity={"bounce0": par[f"{key}_b0"],
                                              f"bounce{LATER_BOUNCE}": par[f"{key}_b{LATER_BOUNCE}"]})))
+    kernels.append(families_entry(scene, cfg, o_all, d_all, raw_all, family_launches["teapot frame"]))
     attach_bounces(kernels, per_bounce("teapot", scene, cfg, o, d, raw, "mega_walk"), "mega_walk")
     log("phase 6 teapot kernel times")
 

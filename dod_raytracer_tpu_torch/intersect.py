@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from .ops import cylinder as cyl_ops
+from .ops import families as family_ops
 from .ops import plane as plane_ops
 from .ops import sphere as sphere_ops
 from .ops import triangle as tri_ops
@@ -162,12 +163,12 @@ def closest_hit(scene, o, d, cfg, t_max=None, saved=None) -> Hit:
 
 
 def occluded_families(scene, o, d, t_max, cfg) -> torch.Tensor:
-    """Any-hit over the non-triangle families only."""
-    eps = cfg.Epsilon
+    """Any-hit over the non-triangle families only: one launch of
+    ``csrc/families_any.cu`` for CUDA tensors, its plain version (the
+    sphere, plane and cylinder tests in torch) for CPU tensors
+    (``ops/families.py``)."""
     with span("shadow.families"):
-        blocked = sphere_ops.occluded_spheres(scene.spheres, o, d, t_max)
-        blocked = blocked | plane_ops.occluded_planes(scene.planes, o, d, t_max, eps)
-        return blocked | cyl_ops.occluded_cylinders(scene.cylinders, o, d, t_max, eps, n_valid=scene.n_cylinders)
+        return family_ops.occluded_any(scene, o, d, t_max, cfg.Epsilon)
 
 
 def occluded_triangles(scene, o, d, t_max, cfg) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """The CUDA kernels (the packet walk and the per-ray walk it replaced, the
 mega and forest walks, the binned walk's block-loop leaf stage and its
 descend round, the Möller–Trumbore and Plücker brute force and the
-per-ray kernels they replaced) vs their plain versions, on a CUDA device.
+per-ray kernels they replaced, the families' any-hit) vs their plain
+versions, on a CUDA device.
 
 The kernels have no CPU mode, so every test here skips without a card.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -24,14 +25,16 @@ the same tree.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
 import dod_raytracer_tpu_torch as T
+import torch_family_rays as R
 from dod_raytracer_tpu_torch.mesh import load_mesh_asset, procedural_dragon
-from dod_raytracer_tpu_torch.ops import binned, brute, forest, mega, mt, packet, plucker
+from dod_raytracer_tpu_torch.ops import binned, brute, families, forest, mega, mt, packet, plucker
 from dod_raytracer_tpu_torch.ops import traverse as ttrav
 from dod_raytracer_tpu_torch.ops.triangle import brute_force_closest
 from dod_raytracer_tpu_torch.shading import _shadow_perm, shadow_rays
@@ -1012,7 +1015,129 @@ def test_backward_launches_no_kernel(grad_scenes, path):
     loss = mse_loss(merge_params(card, {"triangles.verts": verts}), target.cuda(), cfg)
     fwd = {m: counts[0][m] - before[m] for m in counts[1]}
     assert all(n > 0 for n in fwd.values()), fwd
-    after = dict(packet.launches), dict(mt.launches), dict(plucker.launches)
+    after = dict(packet.launches), dict(mt.launches), dict(plucker.launches), dict(families.launches)
     loss.backward()
-    assert (dict(packet.launches), dict(mt.launches), dict(plucker.launches)) == after
+    assert (dict(packet.launches), dict(mt.launches), dict(plucker.launches), dict(families.launches)) == after
     assert bool(torch.isfinite(verts.grad).all()) and float(verts.grad.abs().max()) > 0
+
+
+# ---- the families' any-hit kernel (csrc/families_any.cu): its plain version's bits, no lane excused ----
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def assert_families_kernel(scene, o, d, t_max, eps):
+    """One launch on the card, equal bit for bit to the plain version on
+    the card -> the bits."""
+    before = families.launches["any"]
+    got = families.occluded_any(scene, o, d, t_max, eps)
+    assert families.launches["any"] == before + 1
+    assert got.dtype == torch.bool and got.device == o.device
+    assert torch.equal(got, families.occluded_plain(scene, o, d, t_max, eps))
+    return got
+
+
+@pytest.fixture(scope="module")
+def teapot_ref_frame():
+    """The benchmark's teapot-ref frame (config.ini, 1920x1080, the teapot,
+    MaxPrims=96, leaf_chunk_lanes=48, two tiles of 1,036,800 rays) on the
+    card, every call of the families' any-hit checked against the plain
+    version on its own inputs -> ([(lanes, lanes that differ, blocked)]
+    per call, launches of the frame)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    cfg = T.Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48, ray_tile=1036800)
+    scene = T.default_scene(seed=0, cfg=cfg, mesh="teapot").build(cfg, device="cuda")
+    door, calls = families.occluded_any, []
+
+    def checking(scene, o, d, t_max, eps):
+        got = door(scene, o, d, t_max, eps)
+        ref = families.occluded_plain(scene, o, d, t_max, eps)
+        calls.append((o.shape[0], int((got != ref).sum()), int(ref.sum())))
+        return got
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(families, "occluded_any", checking)
+    families.reset_launches()
+    try:
+        T.render_image(scene, cfg, device="cuda")
+    finally:
+        mp.undo()
+    return calls, families.launches["any"]
+
+
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_families_kernel_on_the_teapot_ref_frame(teapot_ref_frame, bounce):
+    """Every lane of the frame's shadow wavefronts at ``bounce``, in both
+    tiles (call k and 10 + k), is the plain version's bit; one launch a
+    bounce and tile: 20 a frame."""
+    calls, launched = teapot_ref_frame
+    assert launched == len(calls) == 20
+    for lanes, differ, blocked in (calls[bounce], calls[10 + bounce]):
+        assert lanes == 9 * 1036800 and differ == 0 and 0 < blocked < lanes
+
+
+def test_families_kernel_hard_rays():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    scene = R.hard_scene(T, device="cuda")
+    o, d, t_max, expected = R.hard_rays()
+    got = assert_families_kernel(scene, *(torch.from_numpy(x).cuda() for x in (o, d, t_max)), R.EPS)
+    np.testing.assert_array_equal(got.cpu().numpy(), expected)
+
+
+def many_scene():
+    """300 spheres, 140 planes and 70 cylinders of which 67 are real: more
+    than one staged chunk of each family (256, 128, 64 rows)."""
+    rng = np.random.default_rng(21)
+    b = T.SceneBuilder()
+    for _ in range(300):
+        b.add_sphere(rng.uniform(-8, 8, 3), rng.uniform(0.05, 0.6), (1, 1, 1))
+    for _ in range(140):
+        nrm = rng.standard_normal(3)
+        b.add_plane(nrm / np.linalg.norm(nrm) * rng.uniform(9, 40), nrm, (1, 1, 1))
+    for _ in range(70):
+        b.add_cylinder(rng.uniform(-8, 8, 3), rng.standard_normal(3), rng.uniform(0.1, 0.8), rng.uniform(0.5, 3),
+                       (1, 1, 1))
+    return dataclasses.replace(b.build(T.Config(use_kdtree=False), device="cuda"), n_cylinders=67)
+
+
+@pytest.mark.parametrize("case", ["random", "at_hit"])
+@pytest.mark.parametrize("scene_name", ["hard", "many", "bare"])
+def test_families_kernel_random_rays(scene_name, case):
+    """Random rays (killed, clipped and unclipped lanes), and rays clipped
+    exactly at their first family hit and one ulp past it; ``bare`` has
+    only the builder's padding (a radius-0 sphere, a zero-normal plane, a
+    cylinder column past n_cylinders = 0) and blocks nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    scene = {"hard": lambda: R.hard_scene(T, device="cuda"), "many": many_scene,
+             "bare": lambda: T.SceneBuilder().build(T.Config(use_kdtree=False), device="cuda")}[scene_name]()
+    o, d, t_max = (torch.from_numpy(x).cuda() for x in R.random_rays(seed=9, n=65536, spread=9.0))
+    if case == "at_hit":
+        t_first = R.first_hit_t(scene, o, d, R.EPS)
+        t_max = torch.from_numpy(R.at_hit(t_first.cpu().numpy())).cuda()
+    got = assert_families_kernel(scene, o, d, t_max, R.EPS)
+    if scene_name == "bare":
+        assert not bool(got.any())
+    else:
+        assert 0 < int(got.sum()) < o.shape[0]
+
+
+def test_families_kernel_rejects_bad_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    scene = R.hard_scene(T, device="cuda")
+    o, d, t_max = (torch.from_numpy(x).cuda() for x in R.random_rays(seed=10, n=256))
+    before = families.launches["any"]
+    with pytest.raises(TypeError):
+        families.occluded_any(scene, o, d, t_max.double(), R.EPS)
+    with pytest.raises(ValueError):
+        families.occluded_any(scene, o[:, :2], d, t_max, R.EPS)
+    with pytest.raises(ValueError):
+        families.occluded_any(R.hard_scene(T, device="cpu"), o, d, t_max, R.EPS)
+    assert families.launches["any"] == before
+    # non-contiguous rays are made contiguous, not refused
+    wide = torch.cat([o, d], dim=1)
+    assert torch.equal(families.occluded_any(scene, wide[:, :3], wide[:, 3:], t_max, R.EPS),
+                       families.occluded_plain(scene, o, d, t_max, R.EPS))

@@ -108,7 +108,9 @@ def test_span_tree_of_a_small_frame(frame):
 
 def test_kd_lanes_count_the_lanes_handed_to_the_walk(frame, monkeypatch):
     """``kd.lanes.<mode>`` against the rows the walk receives, dead lanes
-    included: N rays a bounce closest, L x N any-hit (batched shadows)."""
+    included: N rays a bounce closest, L x N any-hit (batched shadows);
+    ``families.lanes.any``, the same L x N shadow lanes a bounce, handed to
+    the families' any-hit first."""
     cfg, scene = frame
     seen = {"closest": 0, "any": 0}
     walk = packet.packet_traverse
@@ -121,7 +123,8 @@ def test_kd_lanes_count_the_lanes_handed_to_the_walk(frame, monkeypatch):
     _, rec = traced(lambda: T.render_image(scene, cfg, device="cpu"))
     n, lights = 16 * 8, scene.lights.position.shape[0]
     assert seen == {"closest": 3 * n, "any": 3 * n * lights}
-    assert rec["counters"] == {"kd.lanes.closest": seen["closest"], "kd.lanes.any": seen["any"]}
+    assert rec["counters"] == {"kd.lanes.closest": seen["closest"], "kd.lanes.any": seen["any"],
+                               "families.lanes.any": seen["any"]}
 
 
 def test_remat_step_recomputes_its_bounces_under_backward():
