@@ -161,8 +161,10 @@ Phases, each printed with its elapsed seconds as it ends:
      intensities perturbed from FIT_SEED towards the unperturbed frame:
      seconds a step, and the loss must fall; then one ``sgd_step`` of the
      dragon's vertices along phase 17's grads (no coordinate moves more
-     than SGD_MAX_STEP): the kd blocks must equal ``refresh_kd_blocks`` of
-     the new vertices, and the next flagship frame must be finite; the
+     than SGD_MAX_STEP): the kd blocks of the tree it returns (kept, or
+     rebuilt where a triangle left its lane's filing box) must equal
+     ``refresh_kd_blocks`` of the new vertices, and the next flagship
+     frame must be finite; the
      ``grad`` line;
  20. the CLI, ``python -m dod_raytracer_tpu_torch.cli`` in a subprocess:
      the teapot frame of config.ini alone (its own kd shape, MaxPrims=8,
@@ -681,7 +683,7 @@ def grad_phases(torch, dev, dscene, fcfg, flag_s: float, reset_counts, read_coun
     # one sgd_step of the dragon's vertices, then a frame
     lr = SGD_MAX_STEP / float(gverts.abs().max())
     moved = sgd_step(dscene, {"triangles.verts": gverts}, lr)
-    ref = refresh_kd_blocks(dscene.kd, moved.triangles.verts)
+    ref = refresh_kd_blocks(moved.kd, moved.triangles.verts)
     check(not torch.equal(moved.triangles.verts, dscene.triangles.verts), "sgd_step did not move the vertices")
     check(not torch.equal(moved.kd.block_tris, dscene.kd.block_tris), "sgd_step did not refresh block_tris")
     for f in ("block_tris", "block_g", "block_aabb"):
@@ -692,7 +694,8 @@ def grad_phases(torch, dev, dscene, fcfg, flag_s: float, reset_counts, read_coun
     out["sgd_step"] = dict(lr=lr, max_step=SGD_MAX_STEP, frame_seconds=msec)
     out["vertex_grads"] = gverts  # held by phase 26; not printed
     log(f"phase 19 dragon sgd_step on triangles.verts (lr {lr:.4g}: at most {SGD_MAX_STEP} a coordinate): "
-        f"block_tris, block_g and block_aabb equal refresh_kd_blocks of the new vertices; the next frame "
+        f"block_tris, block_g and block_aabb equal refresh_kd_blocks of the new vertices "
+        f"({'rebuilt' if moved.kd.lane_lo is not dscene.kd.lane_lo else 'kept'} tree); the next frame "
         f"{msec:.3f} s, finite, mean {float(mimg.mean()):.4f}")
     return out
 

@@ -205,6 +205,38 @@ def build(tri_verts: np.ndarray, lane_size: int = 8, max_prims: int = 8,
     )
 
 
+def refile(node_flag: np.ndarray, node_split: np.ndarray, node_right: np.ndarray, mins: np.ndarray,
+           maxs: np.ndarray, max_depth: int) -> BuiltKD:
+    """The tree of splits ``node_*`` (a build's, in its preorder: the left
+    child of interior node i is i + 1) with every lane filed again by its
+    box ``mins``, ``maxs`` (L, 3): into each leaf whose closed cell the
+    box meets (left where its low side is at most the split, right where
+    its high side is at least it); the root bounds are the boxes' union."""
+    leaves: dict = {}
+
+    def rec(i: int, lanes: np.ndarray):
+        axis = int(node_flag[i])
+        if axis == LEAF_FLAG:
+            leaves[i] = lanes
+            return
+        split = node_split[i]
+        rec(i + 1, lanes[mins[lanes, axis] <= split])
+        rec(int(node_right[i]), lanes[maxs[lanes, axis] >= split])
+
+    rec(0, np.arange(mins.shape[0]))
+    starts = np.zeros(node_flag.shape[0], np.int32)
+    counts = np.zeros(node_flag.shape[0], np.int32)
+    prims: list = []
+    for i in sorted(leaves):
+        starts[i], counts[i] = len(prims), len(leaves[i])
+        prims.extend(leaves[i].tolist())
+    return BuiltKD(
+        node_flag=node_flag, node_split=node_split, node_right=node_right, node_leaf_start=starts,
+        node_leaf_lanes=counts, bounds_min=mins.min(axis=0), bounds_max=maxs.max(axis=0),
+        prim_nums=np.asarray(prims, np.int32), max_leaf_lanes=int(counts.max()), max_depth=max_depth,
+    )
+
+
 def align_leaves(built: BuiltKD, chunk_lanes: int) -> BuiltKD:
     """Re-emit the leaf lane lists so every leaf starts on a chunk_lanes
     boundary and occupies a multiple of chunk_lanes lanes (padding lane id

@@ -16,6 +16,10 @@ blocked leaf layout that the traversals read:
 * ``tre_tbl`` / ``top_tbl``: the treelet forest of a tree of more than
   ``treelet_cap`` (0: ``_kdtree_np.MAX_NODES`` = 1024) nodes, the forest
   kernel's tables (``_kdtree_np.cut_treelets``).
+
+Every tree keeps each lane's filing box (``lane_lo``, ``lane_hi``) and its
+build ``Config``, and ``follow_vertices`` keeps it conservative as the
+vertices move.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from . import _kdtree_np
 from ..native import NativeUnavailable, kdtree_native
 from ..scene import KDArrays
 from ..utils.math import cross
+from ..utils.profiling import count, span
 
 logger = logging.getLogger("dod_raytracer_tpu_torch")
 
@@ -47,7 +52,21 @@ def host_build(tri_verts: np.ndarray, cfg):
         return _kdtree_np.build(tri_verts, **kw), "numpy"
 
 
+# the first re-filing of a tree pads each triangle's box by PAD_STEPS times
+# the root mean square move of a vertex coordinate in the step that forced
+# it, so that lanes moving at that pace stay filed for about that many
+# steps; at most PAD_MAX of the mesh's box diagonal, which bounds how many
+# lanes straddle a split.  Later re-filings keep that padding: the number
+# of leaf blocks, and with it the walks' cost, then changes only as the
+# mesh does, not with each step's moves
+PAD_STEPS = 8.0
+PAD_MAX = 0.01
+
+
 def build_kdtree(tri_verts: np.ndarray, cfg, device="cuda") -> KDArrays:
+    """The reference's SAH tree of ``tri_verts`` (T, 3, 3) with its leaf
+    blocks.  The tree keeps each lane's filing box and ``cfg``
+    (``follow_vertices``)."""
     built, builder = host_build(tri_verts, cfg)
     num_lanes_in = (tri_verts.shape[0] + cfg.lane_size - 1) // cfg.lane_size
     logger.info(
@@ -58,7 +77,14 @@ def build_kdtree(tri_verts: np.ndarray, cfg, device="cuda") -> KDArrays:
         built.prim_nums.shape[0],
         built.prim_nums.shape[0] / max(num_lanes_in, 1),
     )
+    return _device_tree(built, torch.from_numpy(tri_verts), _kdtree_np.lane_bounds(tri_verts, cfg.lane_size), 0.0,
+                        cfg, device)
 
+
+def _device_tree(built, tri_verts: torch.Tensor, lane_boxes, margin: float, cfg, device) -> KDArrays:
+    """``KDArrays`` on ``device`` of a host tree ``built`` whose lanes were
+    filed by ``lane_boxes`` (lo, hi), their triangles' boxes padded by
+    ``margin``, with its leaf blocks of ``tri_verts``."""
     built = _kdtree_np.align_leaves(built, cfg.leaf_chunk_lanes)
     perm = _kdtree_np.perm_from_prim_nums(built.prim_nums, tri_verts.shape[0], cfg.lane_size)
     block = cfg.leaf_chunk_lanes * cfg.lane_size
@@ -89,8 +115,66 @@ def build_kdtree(tri_verts: np.ndarray, cfg, device="cuda") -> KDArrays:
         max_leaf_lanes=int(built.max_leaf_lanes),
         block_lanes=int(cfg.leaf_chunk_lanes),
         max_depth=int(built.max_depth),
+        lane_lo=t(lane_boxes[0]),
+        lane_hi=t(lane_boxes[1]),
+        margin=float(margin),
+        build_cfg=cfg,
     )
-    return refresh_kd_blocks(kd, t(tri_verts))
+    return refresh_kd_blocks(kd, tri_verts.to(device))
+
+
+def lanes_left(kd: KDArrays, tri_verts: torch.Tensor) -> torch.Tensor:
+    """() bool tensor: some triangle of ``tri_verts`` has a corner outside
+    its lane's filing box (lanes padded with the last triangle, as
+    ``_kdtree_np.lane_bounds`` pads them)."""
+    v = tri_verts.detach()
+    lanes = kd.lane_lo.shape[0]
+    pad = lanes * kd.lane_size - v.shape[0]
+    if pad:
+        v = torch.cat([v, v[-1:].expand(pad, 3, 3)])
+    v = v.reshape(lanes, kd.lane_size * 3, 3)
+    return ((v.amin(dim=1) < kd.lane_lo) | (v.amax(dim=1) > kd.lane_hi)).any()
+
+
+def follow_vertices(kd: KDArrays, old_verts: torch.Tensor, tri_verts: torch.Tensor) -> KDArrays:
+    """The tree after its triangles moved from ``old_verts`` to
+    ``tri_verts`` (an optimizer's update).
+
+    A lane lies in every leaf whose closed cell its filing box meets, so
+    while every triangle stays inside its lane's box, every ray whose
+    segment meets a triangle visits a leaf that holds it, in every walk,
+    and the root box holds every triangle.  So the leaf blocks are
+    repacked (``refresh_kd_blocks``, the JAX package's update) after a
+    check of the boxes (one read of a flag to the host).  Where a
+    triangle has left its box, every lane is filed again on the host
+    (``_kdtree_np.refile``), by its new box padded by the tree's margin,
+    into the leaves of the same splits: the tree's shape, and with it the
+    walks' cost, stays that of its build.  The first re-filing sets the
+    margin: ``PAD_STEPS`` times the step's root mean square coordinate
+    move, at most ``PAD_MAX`` of the mesh's box diagonal.
+    A tree the port did not build (``scene_from_numpy``) has no filing
+    boxes, and only has its blocks repacked, as in the JAX package.
+    Tracer: spans ``kd.refresh`` and ``kd.rebuild``, counter
+    ``kd.rebuilds`` (the re-filings)."""
+    if kd.lane_lo is None:
+        return refresh_kd_blocks(kd, tri_verts)
+    with span("kd.refresh"):
+        if not bool(lanes_left(kd, tri_verts)):
+            return refresh_kd_blocks(kd, tri_verts)
+    with span("kd.rebuild"):
+        count("kd.rebuilds", 1)
+        v = tri_verts.detach()
+        margin = np.float32(kd.margin)
+        if not margin:
+            move = float(torch.sqrt(torch.mean(torch.square(v - old_verts.detach()))))
+            diag = float(torch.linalg.vector_norm(v.amax(dim=(0, 1)) - v.amin(dim=(0, 1))))
+            margin = np.float32(min(PAD_STEPS * move, PAD_MAX * diag))
+        lo, hi = _kdtree_np.lane_bounds(v.cpu().numpy(), kd.lane_size)
+        boxes = (lo - margin, hi + margin)
+        host = lambda x: x.cpu().numpy()
+        built = _kdtree_np.refile(host(kd.node_flag), host(kd.node_split), host(kd.node_right), *boxes,
+                                  kd.max_depth)
+        return _device_tree(built, v, boxes, margin, kd.build_cfg, v.device)
 
 
 def pad_blocks(S: int) -> int:

@@ -26,7 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .grad import merge_params, split_float_params
+from .grad import follow_moves, merge_params, split_float_params
 
 
 def _flatten_with_paths(tree, prefix: str = "") -> dict:
@@ -106,7 +106,7 @@ def restore_scene_params(path: str, scene, params=("spheres", "lights"),
     opt_state = None
     if opt_state_template is not None:
         opt_state = dict(opt_state_template, state=payload["opt_state"]["state"])
-    return merge_params(scene, payload["params"]), opt_state, step
+    return follow_moves(scene, merge_params(scene, payload["params"])), opt_state, step
 
 
 class TiledRenderJob:

@@ -15,7 +15,10 @@ No kernel has a backward: the backward launches none of them.
 The parameters are the scene's own dataclasses: ``split_float_params``
 picks families ('spheres', 'lights', ...) or dotted leaves
 ('spheres.color', 'triangles.verts'), with None for integer leaves, and
-``merge_params`` puts them back with ``dataclasses.replace``.
+``merge_params`` puts them back with ``dataclasses.replace``.  A welded
+mesh's joined vertex positions, 'triangles.positions', are a leaf too:
+its corners and smooth normals derive from them in the graph
+(``mesh.derive``).
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from .accel.kdtree import refresh_kd_blocks
+from .accel.kdtree import follow_vertices
 from .camera import primary_rays
+from .mesh import derive
 from .render import render_rays
 
 
@@ -98,9 +102,10 @@ def split_float_params(scene, params: Sequence[str]) -> dict:
 
 def merge_params(scene, diff: dict):
     """Inverse of split_float_params: None leaves keep the scene's value.
-    Touching 'triangles' or 'triangles.*' refreshes the kd tree's leaf
-    blocks (``block_tris``, ``block_g``, ``block_aabb``), the walks'
-    forward data, from the new vertices."""
+    New 'triangles.positions' derive the corners and normals
+    (``mesh.derive``, in the graph).  The kd tree stays the scene's: after
+    an update that moves the vertices, ``follow_moves`` brings it up to
+    date."""
     updates: dict = {}
     for p, sub in diff.items():
         if "." in p:
@@ -113,10 +118,24 @@ def merge_params(scene, diff: dict):
             assert p not in updates, f"mixing '{p}' with dotted paths of the same family"
             updates[p] = _map(lambda o, s: o if s is None else s, getattr(scene, p), sub)
     out = dataclasses.replace(scene, **updates)
-    touched_verts = any(p == "triangles" or p.startswith("triangles.") for p in diff)
-    if touched_verts and out.kd is not None and out.kd.block_tris is not None:
-        out = dataclasses.replace(out, kd=refresh_kd_blocks(out.kd, out.triangles.verts))
+    tris = out.triangles
+    if tris.positions is not None and tris.positions is not scene.triangles.positions:
+        verts, normals = derive(tris.positions, tris.faces)
+        out = dataclasses.replace(out, triangles=dataclasses.replace(tris, verts=verts, normals=normals))
     return out
+
+
+def follow_moves(before, after):
+    """``after``, a scene whose vertices an update may have moved from
+    ``before``'s (an optimizer's step, ``sgd_step``, a restored
+    checkpoint), with its kd tree following them
+    (``accel.kdtree.follow_vertices``: the leaf blocks repacked, every
+    lane filed again where a triangle left its lane's filing box).  The kd upkeep
+    of a step, once, after its update; an update that kept the vertex
+    tensor does none."""
+    if after.kd is None or after.kd.block_tris is None or after.triangles.verts is before.triangles.verts:
+        return after
+    return dataclasses.replace(after, kd=follow_vertices(after.kd, before.triangles.verts, after.triangles.verts))
 
 
 def loss_and_param_grads(scene, target, cfg, params: Sequence[str] = ("spheres", "lights")):
@@ -147,7 +166,7 @@ def sgd_step(scene, grads: dict, lr: float):
         else:
             cur = getattr(scene, name)
         stepped[name] = _map(lambda gl, p: None if gl is None else (p - lr * gl).detach(), g, cur)
-    return merge_params(scene, stepped)
+    return follow_moves(scene, merge_params(scene, stepped))
 
 
 def finite_difference(f: Callable[[Any], torch.Tensor], x, eps: float = 1e-3) -> np.ndarray:

@@ -18,7 +18,7 @@ from .ops import plane as plane_ops
 from .ops import sphere as sphere_ops
 from .ops import triangle as tri_ops
 from .ops.ray import INF, FamilyHit, Hit, closer, miss_like
-from .utils.profiling import span
+from .utils.profiling import count, span
 
 
 def _prefer_brute(scene, cfg) -> bool:
@@ -103,8 +103,11 @@ def _triangles_closest(scene, o, d, t_max, cfg, saved=None) -> FamilyHit:
         from .parallel.leaf_shard import sharded_triangles_closest
 
         return sharded_triangles_closest(scene, o, d, t_max, cfg, cfg.tri_shard_axis, saved)
+    first = saved is None or "triangles" not in saved  # not a remat recompute
     idx, hit = remember(saved, "triangles", lambda: _closest_triangle(scene, o, d, t_max, cfg))
     with span("hit.attrs"):
+        if first and torch.is_grad_enabled() and scene.triangles.verts.requires_grad:
+            count("grad.geom.rows", idx.shape[0])  # rows whose hit carries gradient to the vertices
         return tri_ops.triangle_hit_attrs(scene.triangles, o, d, idx, hit, scene.mesh_colors)
 
 

@@ -11,6 +11,9 @@ native OBJ parser:
 * ``join_identical`` — exact-position vertex dedup.
 * ``smooth_normals`` — per-vertex average of adjacent unit face normals.
 * ``mesh_to_triangles`` — flatten to the renderer's (T, 3, 3) soup.
+* ``load_welded``    — the joined positions and faces, before flattening.
+* ``derive``         — corners and smooth normals from joined positions, in
+  torch and in autograd (a welded mesh's, ``scene.Triangles.positions``).
 * ``procedural_dragon`` — the deterministic 869,952-triangle dragon
   stand-in that ``bench.py`` renders (committed as ``assets/dragon_proc.npz``).
 """
@@ -20,8 +23,10 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from .native import NativeUnavailable, objloader_native
+from .utils.profiling import span
 
 _ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
 
@@ -211,6 +216,44 @@ def mesh_to_triangles(verts: np.ndarray, faces: np.ndarray, vertex_normals: np.n
     tv = verts[faces]  # (T, 3, 3)
     tn = vertex_normals[faces]
     return tv.astype(np.float32), tn.astype(np.float32)
+
+
+def derive(positions, faces):
+    """(verts (T, 3, 3), normals (T, 3, 3)) of a welded mesh from its joined
+    positions (V, 3) and faces (T, 3) (int64), on their device and in
+    autograd: the corners by a gather (bit-equal to ``mesh_to_triangles``),
+    the smooth normals by ``smooth_normals``' rule, normalize(sum of the
+    adjacent unit face normals), degenerate faces adding nothing.  Its
+    backward scatters the corners' and the normals' gradients into the
+    positions."""
+    with span("mesh.derive"):
+        verts = positions[faces]
+        a, b, c = verts.unbind(1)
+        fn = torch.linalg.cross(b - a, c - a, dim=-1)
+        fn = _unit(fn)
+        vn = torch.zeros_like(positions)
+        for k in range(3):
+            vn = vn.index_add(0, faces[:, k], fn)
+        return verts, _unit(vn)[faces]
+
+
+def _unit(x):
+    """x / |x| by rows, 0 where |x| = 0 (with a zero gradient there)."""
+    n = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    return torch.where(n > 0, x / torch.where(n > 0, n, 1.0), 0.0)
+
+
+def load_welded(path: str):
+    """-> (positions (V, 3) f32, faces (F, 3) i32): a mesh file's joined
+    positions and faces, as the reference's import holds them before it
+    flattens them (``join_identical`` of ``load_obj`` / ``load_ply``).  The
+    file's own normals are not read: a welded mesh's normals follow its
+    positions (``derive``).  'teapot' names the committed asset."""
+    if path == "teapot":
+        path = os.path.join(_ASSET_DIR, "teapot.obj")
+    loader = load_ply if path.lower().endswith(".ply") else load_obj
+    verts, faces, _ = loader(path)
+    return join_identical(verts, faces)
 
 
 def load_mesh(path: str):

@@ -146,6 +146,12 @@ def triangle_hit_attrs(tris, o, d, tri_idx, hit, mesh_colors=None) -> FamilyHit:
     """Hit attributes recomputed from the winning triangle index, with the
     reference's semantics (triangle.cpp:169-174)."""
     idx = torch.clamp(tri_idx, 0, tris.verts.shape[0] - 1).long()
+    if torch.is_grad_enabled() and (tris.verts.requires_grad or tris.normals.requires_grad):
+        # a miss's row never wins the merge and takes a zero gradient: point
+        # the misses at rows spread over the table instead of row 0, so that
+        # the backward's atomic adds of those zeros do not queue on one row
+        spread = torch.arange(idx.shape[0], device=idx.device) % tris.verts.shape[0]
+        idx = torch.where(hit, idx, spread)
     tri = take(tris.verts, idx)  # (N, 3, 3)
     t, u, v = mt_single(tri, o, d, hit)
     t = torch.where(hit, t, INF)

@@ -163,7 +163,12 @@ def render_rays(scene, o, d, pixel_dirs, cfg: Config) -> torch.Tensor:
     reads the bounce's permutation, closest-triangle winners and shadow
     bits back from the forward (the JAX package's
     ``save_only_these_names("traversal")``), so it launches no traversal
-    or brute-force kernel.
+    or brute-force kernel.  The checkpoint's determinism check is off: it
+    kept a dict and a ``Size`` of each saved tensor's shape until the
+    backward, half of the Python objects a remat forward leaves alive,
+    and those objects bring on the garbage collector's full passes
+    (0.1-0.2 s each in the 1080p teapot shape fit); the recompute reads
+    the traversal's outputs back, so its shapes cannot differ.
 
     With ``cfg.bounce_skip`` (JAX ``render.py:152-175``) each bounce first
     reads ``active.any()`` back to the host, and once no ray of the
@@ -182,7 +187,7 @@ def render_rays(scene, o, d, pixel_dirs, cfg: Config) -> torch.Tensor:
             break  # no ray is active, so neither is any in a later bounce
         if remat:
             state = checkpoint(_bounce, scene, cfg, k, sort, {}, *state,
-                               use_reentrant=False, preserve_rng_state=False)
+                               use_reentrant=False, preserve_rng_state=False, determinism_check="none")
         else:
             state = _bounce(scene, cfg, k, sort, None, *state)
     final, slot_pix = state[3], state[5]

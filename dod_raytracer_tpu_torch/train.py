@@ -17,7 +17,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from .checkpoint import restore_scene_params, save_scene_params
-from .grad import from_leaves, leaves, merge_params, mse_loss, split_float_params
+from .grad import follow_moves, from_leaves, leaves, merge_params, mse_loss, split_float_params
 from .utils.profiling import span
 
 
@@ -66,7 +66,7 @@ def make_update_fn(cfg, params: Sequence[str], loss_fn: Optional[Callable] = Non
         with span("train.optim"):
             opt_state.step()
             stepped = from_leaves(diff, [p.detach().clone() for p in tensors])
-            return loss.detach(), merge_params(scene, stepped), opt_state
+            return loss.detach(), follow_moves(scene, merge_params(scene, stepped)), opt_state
 
     return update
 
