@@ -15,7 +15,8 @@ Phases, each printed with its elapsed seconds as it ends:
      mt_closest.cu and plucker_closest.cu (brute force, one split-kernel
      template, brute.cuh, and the per-ray kernels they replaced; both
      sources' whole -Xptxas -v is printed), families_any.cu (the shadow
-     rays' sphere, plane and cylinder any-hit; its whole -Xptxas -v);
+     rays' sphere, plane and cylinder any-hit) and families_closest.cu
+     (their closest hit; each with its whole -Xptxas -v);
  2b. the host runtime: both native libraries (native/kdtree_build.cpp,
      native/objloader.cpp) built with g++ (the phase fails if either does
      not build: no fallback here); the dragon's SAH tree at config.ini's
@@ -57,6 +58,15 @@ Phases, each printed with its elapsed seconds as it ends:
      TFLOP/s, whichever is larger: ``families_entry``); then all four walks
      per bounce over every traversal launch of one tile's render, with the
      bounce sort on and off (``per_bounce``);
+ 6b. the families' closest-hit kernel (``families_closest_phase``) on
+     bounce 0 of a 1,036,800-ray tile: bit for bit its plain version's, and
+     its time (CUDA events, 20 after 2 warm) in turns with the plain
+     version's, against 60 bytes a ray over 3.35 TB/s; the benchmark's
+     two-tile 10-bounce frame traced (record_shapes, the tracer on): one
+     launch a call of the door, no op inside ``hit.families`` on a tensor
+     other than (N,), (N, 1) or (N, 3), the frame bit-equal to the plain version's; a
+     480x270 remat step of sphere colours and one of sphere centres (the
+     colour path; the recompute path, its rows counted), traced the same way;
   7. the teapot frame with traversal_backend='mega' (the mega warp walk),
      one warm and one timed, against the per-ray frame of phase 4: u8
      channels off by > 1; then 3 frames each with sort_bounces on and off,
@@ -312,9 +322,11 @@ KERNELS = {  # kernel -> (source in the repo, the TPU kernel it replaces)
                         "dod_raytracer_tpu/ops/pallas/plucker_kernel.py:117"),
     # the shadow rays' sphere, plane and cylinder tests: XLA in the JAX package, no Pallas kernel
     "families_any": ("dod_raytracer_tpu_torch/csrc/families_any.cu", "dod_raytracer_tpu/intersect.py:123"),
+    # the sphere, plane and cylinder closest hit: XLA in the JAX package (closest_hit's family chain)
+    "families_closest": ("dod_raytracer_tpu_torch/csrc/families_closest.cu", "dod_raytracer_tpu/intersect.py:89"),
 }
 SOURCES = ["packet_traverse", "kd_walk", "block_loop", "binned_descend", "mt_closest", "plucker_closest",
-           "families_any"]
+           "families_any", "families_closest"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 LATER_BOUNCE = 3
@@ -342,6 +354,8 @@ PLUCKER_OPS = 46  # plucker_closest.cu (25 mul, 20 add, 1 div)
 FAMILY_OPS = {"sphere": 19, "plane": 14, "cylinder": 113}
 FAMILY_LANE_BYTES = 29  # o, d, t_max read (28 B), one bool written
 FAMILY_TILE = 1036800  # the benchmark frame's ray tile (gpubench/configs/teapot-ref.json)
+FAMILY_RAY_BYTES = 60  # families_closest.cu: o, d, t_max read (28 B); t, normal, colour, winner written (32 B)
+CLOSEST_GRAD_FRAME = dict(Width=480, Height=270, ray_tile=0, remat_bounces=True)  # phase 6b's gradient steps
 U8_TOLERANCE = 0.01  # golden tolerance: fraction of u8 channels off by > 1
 TIMING_REPS = 20  # CUDA-event launches per timing, after 2 warm
 BOUNCE_REPS = 2  # the same, per bounce of a tile's render, after 1 warm
@@ -703,6 +717,159 @@ def grad_phases(torch, dev, dscene, fcfg, flag_s: float, reset_counts, read_coun
 # ---- phases 24-26: the ranks of the distributed paths.  multihost.spawn runs each in a process of its
 # own, which imports this file by name (its main() does not run there) and returns numpy results.
 
+def wide_ops(torch, prof, span: str) -> list:
+    """The ops of a ``record_shapes`` profile that ran inside a ``span``
+    range on its thread and read a tensor other than (N,), (N, 1), (N, 3)
+    or a scalar: [(op, shapes)]."""
+    host = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    # the host's ranges only: the profiler also keeps a device-side range of each span, which runs
+    # behind the host and overlaps the ops the host enqueues meanwhile
+    ranges = [(e.time_range.start, e.time_range.end, e.thread) for e in host if e.name == span]
+    check(bool(ranges), f"the profile holds no {span} range")
+    wide = []
+    for e in host:
+        if e.name == span:
+            continue
+        if not any(a <= e.time_range.start and e.time_range.end <= b and e.thread == th for a, b, th in ranges):
+            continue
+        shapes = [sh for sh in (e.input_shapes or []) if isinstance(sh, list)]
+        if any(len(sh) > 2 or (len(sh) == 2 and sh[1] not in (1, 3)) for sh in shapes):
+            wide.append((e.name, shapes))
+    return wide
+
+
+def kernel_count(torch, prof, name: str) -> int:
+    """Launches of device kernels whose name holds ``name`` in a profile."""
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key)
+
+
+def families_closest_phase(torch, dev, scene=None) -> dict:
+    """Phase 6b: the families' closest-hit kernel (csrc/families_closest.cu)
+    at the benchmark frame's shape, bounce 0 of a 1,036,800-ray teapot-ref
+    tile: the plain version's bits, CUDA events (TIMING_REPS after 2 warm)
+    in turns with the plain version, against its byte bound (60 B a ray);
+    then the 10-bounce frame traced (the tracer on, ``record_shapes``):
+    one launch a call (20), no op inside ``hit.families`` on an (N, S) or
+    (N, S, 3) tensor, the frame bit-equal to the plain version's; then a
+    480x270 remat step of sphere colours and one of sphere centres, traced
+    the same way (the colour path and the recompute path, forward and
+    backward) -> the ``kernels`` line's entry."""
+    from dod_raytracer_tpu_torch import Config, default_scene, render_image
+    from dod_raytracer_tpu_torch.grad import merge_params, mse_loss, render_for_grad
+    from dod_raytracer_tpu_torch.ops import families
+    from dod_raytracer_tpu_torch.render import frame_rays
+    from dod_raytracer_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    cfg = Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48, ray_tile=FAMILY_TILE)
+    if scene is None:
+        scene = default_scene(seed=0, cfg=cfg, mesh="teapot").build(cfg, device=dev)
+    eps, bug = cfg.Epsilon, cfg.replicate_reference_bugs
+    o_all, d_all, _, _, tile = frame_rays(cfg, dev)
+    o, d = o_all[:tile].contiguous(), d_all[:tile].contiguous()
+    t_max = torch.full((tile,), float("inf"), device=dev)
+
+    def parity(o, d, t_max, label):
+        winner, got = families.closest_kernel(scene, o, d, t_max, eps, bug)
+        ref_winner, ref = families.closest_plain(scene, o, d, t_max, eps, bug)
+        hit = ref_winner >= 0
+        differ = int(((winner != ref_winner) | (got.t != ref.t) | hit & ((got.normal != ref.normal).any(1)
+                                                                         | (got.color != ref.color).any(1))).sum())
+        check(differ == 0, f"families_closest {label}: {differ} of {o.shape[0]} rays differ from the plain version")
+        check(not bool(got.normal[~hit].any() or got.color[~hit].any()), f"families_closest {label}: a miss not zero")
+        return int(hit.sum())
+
+    hits = parity(o, d, t_max, "bounce 0")
+    turns = time_turns(torch, {"kernel": lambda: families.closest_kernel(scene, o, d, t_max, eps, bug),
+                               "plain": lambda: families.closest_plain(scene, o, d, t_max, eps, bug)}, TIMING_REPS)
+    n_cyl = min(scene.n_cylinders, scene.cylinders.base.shape[0])
+    ops = tile * (scene.spheres.center.shape[0] * FAMILY_OPS["sphere"]
+                  + scene.planes.point.shape[0] * FAMILY_OPS["plane"] + n_cyl * FAMILY_OPS["cylinder"])
+    nbytes = tile * FAMILY_RAY_BYTES
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3
+    bound_ms, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    log(f"phase 6b families_closest[closest]: {tile} rays ({hits} hit), kernel {turns['kernel']:.4f} ms/launch, "
+        f"plain {turns['plain']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, {ops} operations), "
+        f"{turns['kernel'] / bound_ms:.2f}x the bound")
+
+    door = families.closest
+    seen = {"calls": 0, "rays": 0}
+
+    def counting(scene, o, d, t_max, eps, color_bug):
+        seen["calls"] += 1
+        seen["rays"] += o.shape[0]
+        return door(scene, o, d, t_max, eps, color_bug)
+
+    def traced(fn, label):
+        """``fn`` under the profiler and the tracer, every call of the door
+        counted -> (its result, {calls, launches, profiled launches, wide
+        ops, counters})."""
+        seen.update(calls=0, rays=0)
+        families.reset_launches()
+        families.closest = counting
+        profiling.enable()
+        try:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA],
+                                        record_shapes=True) as prof:
+                out = fn()
+                torch.cuda.synchronize()
+        finally:
+            families.closest = door
+            profiling.disable()
+        counters = profiling.take()["counters"]
+        rec = dict(calls=seen["calls"], launches=families.launches["closest"],
+                   profiled=kernel_count(torch, prof, "families_closest_hit_kernel"),
+                   wide=wide_ops(torch, prof, "hit.families"),
+                   lanes=counters.get("families.lanes.closest", 0), grad_rows=counters.get("families.grad.rows", 0))
+        check(rec["launches"] == rec["calls"] > 0 and rec["lanes"] == seen["rays"],
+              f"{label}: {rec['launches']} launches for {rec['calls']} calls of the door, lanes {rec['lanes']}")
+        check(rec["profiled"] in (0, rec["launches"]), f"{label}: the profile holds {rec['profiled']} launches")
+        check(not rec["wide"], f"{label}: ops inside hit.families on wide tensors: {rec['wide'][:5]}")
+        return out, rec
+
+    with torch.no_grad():
+        img, frame_rec = traced(lambda: render_image(scene, cfg, device=dev), "traced frame")
+        check(frame_rec["calls"] == 2 * cfg.recursion_depth, f"traced frame: {frame_rec['calls']} calls")
+        families.closest = lambda scene, o, d, t_max, eps, color_bug: families.closest_plain(
+            scene, o, d, t_max, eps, color_bug)[1]
+        try:
+            img_plain = render_image(scene, cfg, device=dev)
+        finally:
+            families.closest = door
+    check(torch.equal(img, img_plain), "the frame differs from the plain version's frame")
+    del img, img_plain
+
+    gcfg = dataclasses.replace(cfg, **CLOSEST_GRAD_FRAME)
+    with torch.no_grad():
+        target = render_for_grad(scene, gcfg) * 0.9
+    steps = {}
+    for name in ("spheres.color", "spheres.center"):
+        leaf = getattr(scene.spheres, name.split(".")[1]).detach().clone().requires_grad_(True)
+
+        def step():
+            loss = mse_loss(merge_params(scene, {name: leaf}), target, gcfg)
+            loss.backward()
+            return float(loss)
+
+        loss, rec = traced(step, f"remat step of {name}")
+        check(bool(torch.isfinite(leaf.grad).all()) and float(leaf.grad.abs().max()) > 0,
+              f"remat step of {name}: gradient {leaf.grad}")
+        rays = gcfg.Width * gcfg.Height
+        check(rec["calls"] == 2 * gcfg.recursion_depth, f"remat step of {name}: {rec['calls']} calls")
+        check(rec["grad_rows"] == (rec["lanes"] if name == "spheres.center" else 0),
+              f"remat step of {name}: {rec['grad_rows']} rows recomputed of {rec['lanes']}")
+        steps[name] = dict(rec, loss=loss, rays=rays)
+    log(f"phase 6b traced: frame {json.dumps(frame_rec)}, bit-equal to the plain version's; remat steps "
+        f"{json.dumps(steps)}; {time.perf_counter() - t0:.1f} s")
+    source, replaces = KERNELS["families_closest"]
+    return dict(name="families_closest[closest]", route="cuda", source=source, replaces=replaces,
+                launches=frame_rec["launches"], max_abs_err=0.0, ms=turns["kernel"], plain_ms=turns["plain"],
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, rays=tile, bytes=nbytes, operations=ops,
+                hits=hits, traced_frame=frame_rec, remat_steps=steps)
+
+
 def timed_frame(torch, render, quantize_u8) -> dict:
     """A warm call of ``render``, then a timed one with every launch count
     set to 0 just before it and read just after: only the packet walk may
@@ -984,7 +1151,8 @@ def main(device: str = "cuda") -> int:
     builds = _cuda.build_all(SOURCES, force=True)
     for b in builds:
         for line in b["log"].splitlines():
-            if b["name"] in ("packet_traverse", "kd_walk", "mt_closest", "plucker_closest", "families_any") \
+            if b["name"] in ("packet_traverse", "kd_walk", "mt_closest", "plucker_closest", "families_any",
+                             "families_closest") \
                     or "registers" in line or "spill" in line \
                     or "stack frame" in line:
                 print(f"  ptxas {b['name']}:", line.strip(), flush=True)
@@ -994,6 +1162,7 @@ def main(device: str = "cuda") -> int:
         module._fn_per_ray()
     binned._fn_descend()
     families._fn()
+    families._fn_closest()
     log("phase 2 build: " + ", ".join(f"{b['name']}.cu nvcc {b['seconds']:.2f} s -> "
                                       f"{os.path.relpath(b['path'], ROOT)}" for b in builds)
         + f"; {time.perf_counter() - t:.2f} s wall")
@@ -1781,6 +1950,7 @@ def main(device: str = "cuda") -> int:
                 nodes_bytes, dict(scene="teapot", parity={"bounce0": par[f"{key}_b0"],
                                              f"bounce{LATER_BOUNCE}": par[f"{key}_b{LATER_BOUNCE}"]})))
     kernels.append(families_entry(scene, cfg, o_all, d_all, raw_all, family_launches["teapot frame"]))
+    kernels.append(families_closest_phase(torch, dev, scene))
     attach_bounces(kernels, per_bounce("teapot", scene, cfg, o, d, raw, "mega_walk"), "mega_walk")
     log("phase 6 teapot kernel times")
 

@@ -10,7 +10,9 @@ light intensity, because
   analytically, with gradient, from the gathered primitive; and
 * shadow visibility is a step function computed without gradient.
 
-No kernel has a backward: the backward launches none of them.
+No kernel has a backward: the backward launches no traversal kernel
+(under ``remat_bounces`` its recompute of a bounce launches the
+families' closest-hit kernel again, which keeps no state).
 
 The parameters are the scene's own dataclasses: ``split_float_params``
 picks families ('spheres', 'lights', ...) or dotted leaves

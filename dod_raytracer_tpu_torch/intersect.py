@@ -12,10 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from .ops import cylinder as cyl_ops
 from .ops import families as family_ops
-from .ops import plane as plane_ops
-from .ops import sphere as sphere_ops
 from .ops import triangle as tri_ops
 from .ops.ray import INF, FamilyHit, Hit, closer, miss_like
 from .utils.profiling import count, span
@@ -51,8 +48,10 @@ def remember(saved, key: str, fn):
     ``saved`` is one bounce's dict under ``remat_bounces`` (None
     otherwise): the forward computes each discrete traversal output once
     and stores it; the backward's recompute of the bounce reads it back
-    and launches no kernel, as the JAX package's
-    ``save_only_these_names("traversal")`` policy saves them."""
+    and launches no traversal kernel, as the JAX package's
+    ``save_only_these_names("traversal")`` policy saves them.  The
+    families' closest hit is not kept: its kernel runs again (4 B a ray a
+    bounce would outlive the forward)."""
     if saved is None:
         return fn()
     if key not in saved:
@@ -132,20 +131,13 @@ def _triangles_occluded(scene, o, d, t_max, cfg) -> torch.Tensor:
 
 def closest_families(scene, o, d, cfg, t_max) -> FamilyHit:
     """Closest hit over the non-triangle families only (sphere -> plane ->
-    cylinder); ``minimum(result.t, t_max)`` is the clip the triangle
-    query receives in ``closest_hit``."""
-    eps = cfg.Epsilon
+    cylinder): one launch of ``csrc/families_closest.cu`` for CUDA
+    tensors, its plain version for CPU tensors; the hit carries gradient
+    as its inputs ask (``ops/families.py`` ``closest``).
+    ``minimum(result.t, t_max)`` is the clip the triangle query receives
+    in ``closest_hit``."""
     with span("hit.families"):
-        best = sphere_ops.intersect_spheres(scene.spheres, o, d, t_max)
-        best = closer(best, plane_ops.intersect_planes(scene.planes, o, d, torch.minimum(best.t, t_max), eps))
-        return closer(
-            best,
-            cyl_ops.intersect_cylinders(
-                scene.cylinders, o, d, torch.minimum(best.t, t_max), eps,
-                color_bug=cfg.replicate_reference_bugs,
-                n_valid=scene.n_cylinders,
-            ),
-        )
+        return family_ops.closest(scene, o, d, t_max, cfg.Epsilon, cfg.replicate_reference_bugs)
 
 
 def closest_hit(scene, o, d, cfg, t_max=None, saved=None) -> Hit:

@@ -93,16 +93,21 @@ def cylinder_candidate_t(cyl, o, d, t_max, eps, n_valid=None):
     return cand
 
 
-def intersect_cylinders(cyl, o, d, t_max, eps, color_bug: bool = False, n_valid=None) -> FamilyHit:
-    t_cand = cylinder_candidate_t(cyl, o, d, t_max, eps, n_valid)  # (N, C, 3)
-    n = o.shape[0]
-    flat = t_cand.reshape(n, -1)  # cylinder-major, candidate-minor: ref order
-    idx = torch.argmin(flat, dim=1).detach()
-    t_fwd = torch.gather(flat, 1, idx[:, None])[:, 0]
-    hit = t_fwd < t_max
-    ci = idx // 3  # winning cylinder
-    kind = idx % 3  # 0 body, 1 discA, 2 discB
+@torch.no_grad()
+def cylinder_winner(cyl, o, d, t_max, eps, n_valid=None):
+    """(idx (N,) int64, hit (N,) bool): each ray's closest candidate in
+    ``cylinder_candidate_t``'s flat order (cylinder ``idx // 3``, kind
+    ``idx % 3``: 0 body, 1 disc A, 2 disc B), the first of equal ones, and
+    whether it lies strictly before ``t_max``."""
+    flat = cylinder_candidate_t(cyl, o, d, t_max, eps, n_valid).reshape(o.shape[0], -1)  # ref order
+    idx = torch.argmin(flat, dim=1)
+    return idx, torch.gather(flat, 1, idx[:, None])[:, 0] < t_max
 
+
+def cylinder_hit(cyl, o, d, ci, kind, hit, color_bug: bool = False) -> FamilyHit:
+    """The hit on candidate ``kind`` (N,) of cylinder ``ci`` (N,) where
+    ``hit``, recomputed from the gathered rows with gradient; t is +inf
+    where not ``hit``."""
     base_w, axis_w = take(cyl.base, ci), take(cyl.axis, ci)
     r_w, h_w = take(cyl.radius, ci), take(cyl.height, ci)
 
@@ -138,6 +143,11 @@ def intersect_cylinders(cyl, o, d, t_max, eps, color_bug: bool = False, n_valid=
 
     color = torch.zeros_like(take(cyl.color, ci)) if color_bug else take(cyl.color, ci)
     return FamilyHit(t=t, normal=normal, color=color)
+
+
+def intersect_cylinders(cyl, o, d, t_max, eps, color_bug: bool = False, n_valid=None) -> FamilyHit:
+    idx, hit = cylinder_winner(cyl, o, d, t_max, eps, n_valid)
+    return cylinder_hit(cyl, o, d, idx // 3, idx % 3, hit, color_bug)
 
 
 def occluded_cylinders(cyl, o, d, t_max, eps, n_valid=None) -> torch.Tensor:

@@ -28,11 +28,18 @@ def plane_candidate_t(point, normal, o, d, eps):
     return torch.where(valid, t, INF)
 
 
-def intersect_planes(planes, o, d, t_max, eps) -> FamilyHit:
+@torch.no_grad()
+def plane_winner(planes, o, d, t_max, eps):
+    """(idx (N,) int64, hit (N,) bool): each ray's closest plane, the first
+    of equal candidates, and whether it lies strictly before ``t_max``."""
     t_all = plane_candidate_t(planes.point, planes.normal, o, d, eps)  # (N, P)
-    idx = torch.argmin(t_all, dim=1).detach()
-    hit = torch.gather(t_all, 1, idx[:, None])[:, 0] < t_max
+    idx = torch.argmin(t_all, dim=1)
+    return idx, torch.gather(t_all, 1, idx[:, None])[:, 0] < t_max
 
+
+def plane_hit(planes, o, d, idx, hit) -> FamilyHit:
+    """The hit on plane ``idx`` (N,) where ``hit``, recomputed from its
+    gathered row with gradient; t is +inf where not ``hit``."""
     p_w = take(planes.point, idx)
     n_w = take(planes.normal, idx)
     denom = torch.sum(d * n_w, dim=-1)
@@ -40,6 +47,10 @@ def intersect_planes(planes, o, d, t_max, eps) -> FamilyHit:
     t = safe_div(num, denom, hit)
     t = torch.where(hit, t, INF)
     return FamilyHit(t=t, normal=n_w, color=take(planes.color, idx))
+
+
+def intersect_planes(planes, o, d, t_max, eps) -> FamilyHit:
+    return plane_hit(planes, o, d, *plane_winner(planes, o, d, t_max, eps))
 
 
 def occluded_planes(planes, o, d, t_max, eps) -> torch.Tensor:

@@ -48,16 +48,19 @@ def _recompute_t(center_w, radius_w, o, d, valid):
     return tca - thc  # == min(t0, t1) given t0,t1 >= 0
 
 
-def intersect_spheres(spheres, o, d, t_max) -> FamilyHit:
-    """Closest hit over the sphere family (padding radius 0 never hits).
-
-    ``t_max``: (N,) incoming clipping distance (strict upper bound).
-    """
+@torch.no_grad()
+def sphere_winner(spheres, o, d, t_max):
+    """(idx (N,) int64, hit (N,) bool): each ray's closest sphere, the first
+    of equal candidates, and whether it lies strictly before ``t_max``.
+    Discrete, so computed without gradient."""
     t_all = sphere_candidate_t(spheres.center, spheres.radius, o, d)  # (N, S)
-    idx = torch.argmin(t_all, dim=1).detach()  # (N,)
-    t_fwd = torch.gather(t_all, 1, idx[:, None])[:, 0]
-    hit = t_fwd < t_max
+    idx = torch.argmin(t_all, dim=1)
+    return idx, torch.gather(t_all, 1, idx[:, None])[:, 0] < t_max
 
+
+def sphere_hit(spheres, o, d, idx, hit) -> FamilyHit:
+    """The hit on sphere ``idx`` (N,) where ``hit``, recomputed from its
+    gathered row with gradient; t is +inf where not ``hit``."""
     center_w = take(spheres.center, idx)
     radius_w = take(spheres.radius, idx)
     t = _recompute_t(center_w, radius_w, o, d, hit)
@@ -69,6 +72,14 @@ def intersect_spheres(spheres, o, d, t_max) -> FamilyHit:
     nrm_sq = torch.clamp_min(dot(delta, delta), 1e-30)
     normal = delta * torch.rsqrt(nrm_sq)[:, None]
     return FamilyHit(t=t, normal=normal, color=take(spheres.color, idx))
+
+
+def intersect_spheres(spheres, o, d, t_max) -> FamilyHit:
+    """Closest hit over the sphere family (padding radius 0 never hits).
+
+    ``t_max``: (N,) incoming clipping distance (strict upper bound).
+    """
+    return sphere_hit(spheres, o, d, *sphere_winner(spheres, o, d, t_max))
 
 
 def occluded_spheres(spheres, o, d, t_max) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """The CUDA kernels (the packet walk and the per-ray walk it replaced, the
 mega and forest walks, the binned walk's block-loop leaf stage and its
 descend round, the Möller–Trumbore and Plücker brute force and the
-per-ray kernels they replaced, the families' any-hit) vs their plain
-versions, on a CUDA device.
+per-ray kernels they replaced, the families' any-hit and closest hit) vs
+their plain versions, on a CUDA device.
 
 The kernels have no CPU mode, so every test here skips without a card.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -1000,7 +1000,10 @@ def test_grads_on_the_card_match_the_cpu(grad_scenes):
 @pytest.mark.parametrize("path", ["packet", "packet_remat", "mt", "plucker"])
 def test_backward_launches_no_kernel(grad_scenes, path):
     """The forward of a gradient frame launches its kernels; the backward
-    launches none (remat_bounces reads the traversal outputs back)."""
+    launches no traversal kernel (remat_bounces reads the traversal
+    outputs back).  Under remat_bounces the backward's recompute of a
+    bounce launches the families' closest-hit kernel once, as its forward
+    did, and nothing else."""
     from dod_raytracer_tpu_torch.grad import merge_params, mse_loss
 
     cfg, _, card, target = grad_scenes
@@ -1012,10 +1015,14 @@ def test_backward_launches_no_kernel(grad_scenes, path):
               "plucker": (plucker.launches, ("closest",))}[path.split("_")[0]]
     verts = card.triangles.verts.detach().clone().requires_grad_(True)
     before = {m: counts[0][m] for m in counts[1]}
+    before_closest = families.launches["closest"]
     loss = mse_loss(merge_params(card, {"triangles.verts": verts}), target.cuda(), cfg)
     fwd = {m: counts[0][m] - before[m] for m in counts[1]}
     assert all(n > 0 for n in fwd.values()), fwd
+    closest = families.launches["closest"]
     after = dict(packet.launches), dict(mt.launches), dict(plucker.launches), dict(families.launches)
+    if path == "packet_remat":
+        after[3]["closest"] += closest - before_closest
     loss.backward()
     assert (dict(packet.launches), dict(mt.launches), dict(plucker.launches), dict(families.launches)) == after
     assert bool(torch.isfinite(verts.grad).all()) and float(verts.grad.abs().max()) > 0
@@ -1086,22 +1093,6 @@ def test_families_kernel_hard_rays():
     np.testing.assert_array_equal(got.cpu().numpy(), expected)
 
 
-def many_scene():
-    """300 spheres, 140 planes and 70 cylinders of which 67 are real: more
-    than one staged chunk of each family (256, 128, 64 rows)."""
-    rng = np.random.default_rng(21)
-    b = T.SceneBuilder()
-    for _ in range(300):
-        b.add_sphere(rng.uniform(-8, 8, 3), rng.uniform(0.05, 0.6), (1, 1, 1))
-    for _ in range(140):
-        nrm = rng.standard_normal(3)
-        b.add_plane(nrm / np.linalg.norm(nrm) * rng.uniform(9, 40), nrm, (1, 1, 1))
-    for _ in range(70):
-        b.add_cylinder(rng.uniform(-8, 8, 3), rng.standard_normal(3), rng.uniform(0.1, 0.8), rng.uniform(0.5, 3),
-                       (1, 1, 1))
-    return dataclasses.replace(b.build(T.Config(use_kdtree=False), device="cuda"), n_cylinders=67)
-
-
 @pytest.mark.parametrize("case", ["random", "at_hit"])
 @pytest.mark.parametrize("scene_name", ["hard", "many", "bare"])
 def test_families_kernel_random_rays(scene_name, case):
@@ -1111,7 +1102,7 @@ def test_families_kernel_random_rays(scene_name, case):
     cylinder column past n_cylinders = 0) and blocks nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    scene = {"hard": lambda: R.hard_scene(T, device="cuda"), "many": many_scene,
+    scene = {"hard": lambda: R.hard_scene(T, device="cuda"), "many": lambda: R.many_scene(T, "cuda"),
              "bare": lambda: T.SceneBuilder().build(T.Config(use_kdtree=False), device="cuda")}[scene_name]()
     o, d, t_max = (torch.from_numpy(x).cuda() for x in R.random_rays(seed=9, n=65536, spread=9.0))
     if case == "at_hit":
@@ -1141,3 +1132,158 @@ def test_families_kernel_rejects_bad_inputs():
     wide = torch.cat([o, d], dim=1)
     assert torch.equal(families.occluded_any(scene, wide[:, :3], wide[:, 3:], t_max, R.EPS),
                        families.occluded_plain(scene, o, d, t_max, R.EPS))
+
+
+# ---- the families' closest-hit kernel (csrc/families_closest.cu): its plain version's bits ----
+
+def assert_closest_kernel(scene, o, d, t_max, eps, color_bug=False):
+    """One launch on the card, equal to the plain version on the card: the
+    winner and t bit for bit on every ray, the normal and colour on every
+    ray that hits, zeros in both on a miss -> (winner, hit)."""
+    before = families.launches["closest"]
+    winner, got = families.closest_kernel(scene, o, d, t_max, eps, color_bug)
+    assert families.launches["closest"] == before + 1
+    ref_winner, ref = families.closest_plain(scene, o, d, t_max, eps, color_bug)
+    assert torch.equal(winner, ref_winner) and torch.equal(got.t, ref.t)
+    hit = winner >= 0
+    assert torch.equal(hit, torch.isfinite(ref.t))
+    assert torch.equal(got.normal[hit], ref.normal[hit]) and torch.equal(got.color[hit], ref.color[hit])
+    assert not bool(got.normal[~hit].any()) and not bool(got.color[~hit].any())
+    return winner, got
+
+
+@pytest.mark.parametrize("color_bug", [False, True])
+def test_closest_kernel_tie_and_hard_rays(color_bug):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    o, d, t_max, code, t = R.tie_rays()
+    winner, got = assert_closest_kernel(R.tie_scene(T, device="cuda"),
+                                        *(torch.from_numpy(x).cuda() for x in (o, d, t_max)), R.EPS, color_bug)
+    np.testing.assert_array_equal(winner.cpu().numpy(), code)
+    np.testing.assert_array_equal(got.t.cpu().numpy(), t)
+    o, d, t_max, _ = R.hard_rays()
+    assert_closest_kernel(R.hard_scene(T, device="cuda"), *(torch.from_numpy(x).cuda() for x in (o, d, t_max)),
+                          R.EPS, color_bug)
+
+
+@pytest.mark.parametrize("case", ["random", "at_hit"])
+@pytest.mark.parametrize("scene_name", ["hard", "tie", "many", "bare"])
+def test_closest_kernel_random_rays(scene_name, case):
+    """Random rays (killed, clipped and unclipped), and rays clipped exactly
+    at their first family hit and one ulp past it; ``many`` stages more
+    than one chunk of each family; ``bare`` (SceneBuilder's padding alone)
+    hits nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    scene = {"hard": lambda: R.hard_scene(T, device="cuda"), "tie": lambda: R.tie_scene(T, device="cuda"),
+             "many": lambda: R.many_scene(T, "cuda"),
+             "bare": lambda: T.SceneBuilder().build(T.Config(use_kdtree=False), device="cuda")}[scene_name]()
+    o, d, t_max = (torch.from_numpy(x).cuda() for x in R.random_rays(seed=19, n=65536, spread=9.0))
+    if case == "at_hit":
+        t_max = torch.from_numpy(R.at_hit(R.first_hit_t(scene, o, d, R.EPS).cpu().numpy())).cuda()
+    winner, _ = assert_closest_kernel(scene, o, d, t_max, R.EPS)
+    hits = int((winner >= 0).sum())
+    assert hits == 0 if scene_name == "bare" else 0 < hits < o.shape[0]
+
+
+def test_closest_paths_give_the_kernel_bits():
+    """With gradients on, the colour path (the kernel's t and normal, the
+    colour gathered by the winner) and the geometry path (the winner's hit
+    recomputed in torch on the card) give the kernel's bits on every ray
+    that hits, each after one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    cfg = T.Config(use_kdtree=False)
+    scene = T.default_scene(seed=3, cfg=cfg, mesh=None).build(cfg, device="cuda")
+    o, d, t_max = (torch.from_numpy(x).cuda() for x in R.random_rays(seed=20, n=65536, spread=4.0))
+    winner, ref = assert_closest_kernel(scene, o, d, t_max, R.EPS)
+    hit = winner >= 0
+    colours = dataclasses.replace(scene, spheres=dataclasses.replace(
+        scene.spheres, color=scene.spheres.color.clone().requires_grad_(True)))
+    for sc, oo in ((colours, o), (scene, o.clone().requires_grad_(True))):
+        before = families.launches["closest"]
+        got = families.closest(sc, oo, d, t_max, R.EPS, False)
+        assert families.launches["closest"] == before + 1
+        assert torch.equal(got.t, ref.t)
+        assert torch.equal(got.normal[hit], ref.normal[hit]) and torch.equal(got.color[hit], ref.color[hit])
+        assert got.t.requires_grad == got.normal.requires_grad == oo.requires_grad
+        assert got.color.requires_grad == sc.spheres.color.requires_grad
+
+
+@pytest.fixture(scope="module")
+def teapot_closest_frame():
+    """The benchmark's teapot-ref frame on the card (two tiles of 1,036,800
+    rays), every call of the families' closest hit checked against the
+    plain version on its inputs, and the frame again with the plain
+    version in the kernel's place -> ([(rays, rays that differ, hits)] per
+    call, launches, the frame, the plain version's frame)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    cfg = T.Config.load(os.path.join(ROOT, "config.ini"), MaxPrims=96, leaf_chunk_lanes=48, ray_tile=1036800)
+    scene = T.default_scene(seed=0, cfg=cfg, mesh="teapot").build(cfg, device="cuda")
+    calls = []
+
+    def checking(scene, o, d, t_max, eps, color_bug):
+        winner, got = families.closest_kernel(scene, o, d, t_max, eps, color_bug)
+        ref_winner, ref = families.closest_plain(scene, o, d, t_max, eps, color_bug)
+        hit = ref_winner >= 0
+        differ = (winner != ref_winner) | (got.t != ref.t) | hit & ((got.normal != ref.normal).any(1)
+                                                                    | (got.color != ref.color).any(1))
+        calls.append((o.shape[0], int(differ.sum()), int(hit.sum())))
+        return got
+
+    def plain(scene, o, d, t_max, eps, color_bug):
+        return families.closest_plain(scene, o, d, t_max, eps, color_bug)[1]
+
+    mp = pytest.MonkeyPatch()
+    families.reset_launches()
+    try:
+        mp.setattr(families, "closest", checking)
+        T.render_image(scene, cfg, device="cuda")
+        launched = families.launches["closest"]
+        mp.undo()
+        img = T.render_image(scene, cfg, device="cuda")
+        mp.setattr(families, "closest", plain)
+        img_plain = T.render_image(scene, cfg, device="cuda")
+    finally:
+        mp.undo()
+    return calls, launched, img, img_plain
+
+
+@pytest.mark.parametrize("bounce", [0, 3, 9])
+def test_closest_kernel_on_the_teapot_ref_frame(teapot_closest_frame, bounce):
+    """Every ray of the frame's closest-hit wavefronts at ``bounce``, in both
+    tiles (call k and 10 + k), is the plain version's; one launch a
+    bounce and tile: 20 a frame."""
+    calls, launched, _, _ = teapot_closest_frame
+    assert launched == len(calls) == 20
+    for rays, differ, hits in (calls[bounce], calls[10 + bounce]):
+        assert rays == 1036800 and differ == 0 and 0 < hits
+
+
+def test_teapot_ref_frame_equals_the_plain_versions_frame(teapot_closest_frame):
+    """The 10-bounce frame with the kernel (zeros on its misses) is the
+    frame with the plain version (garbage there) bit for bit: nothing
+    reads a miss's normal or colour."""
+    _, _, img, img_plain = teapot_closest_frame
+    assert torch.equal(img, img_plain)
+
+
+def test_closest_kernel_rejects_bad_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    scene = R.hard_scene(T, device="cuda")
+    o, d, t_max = (torch.from_numpy(x).cuda() for x in R.random_rays(seed=21, n=256))
+    before = families.launches["closest"]
+    with pytest.raises(TypeError):
+        families.closest(scene, o, d, t_max.double(), R.EPS, False)
+    with pytest.raises(ValueError):
+        families.closest(scene, o[:, :2], d, t_max, R.EPS, False)
+    with pytest.raises(ValueError):
+        families.closest(R.hard_scene(T, device="cpu"), o, d, t_max, R.EPS, False)
+    assert families.launches["closest"] == before
+    # non-contiguous rays are made contiguous, not refused
+    wide = torch.cat([o, d], dim=1)
+    with torch.no_grad():
+        got = families.closest(scene, wide[:, :3], wide[:, 3:], t_max, R.EPS, False)
+    assert torch.equal(got.t, families.closest_plain(scene, o, d, t_max, R.EPS, False)[1].t)

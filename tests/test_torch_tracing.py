@@ -110,7 +110,8 @@ def test_kd_lanes_count_the_lanes_handed_to_the_walk(frame, monkeypatch):
     """``kd.lanes.<mode>`` against the rows the walk receives, dead lanes
     included: N rays a bounce closest, L x N any-hit (batched shadows);
     ``families.lanes.any``, the same L x N shadow lanes a bounce, handed to
-    the families' any-hit first."""
+    the families' any-hit first; ``families.lanes.closest``, the N rays a
+    bounce handed to the families' closest hit first."""
     cfg, scene = frame
     seen = {"closest": 0, "any": 0}
     walk = packet.packet_traverse
@@ -124,7 +125,7 @@ def test_kd_lanes_count_the_lanes_handed_to_the_walk(frame, monkeypatch):
     n, lights = 16 * 8, scene.lights.position.shape[0]
     assert seen == {"closest": 3 * n, "any": 3 * n * lights}
     assert rec["counters"] == {"kd.lanes.closest": seen["closest"], "kd.lanes.any": seen["any"],
-                               "families.lanes.any": seen["any"]}
+                               "families.lanes.any": seen["any"], "families.lanes.closest": seen["closest"]}
 
 
 def test_remat_step_recomputes_its_bounces_under_backward():

@@ -1,7 +1,7 @@
-"""Scenes and rays for the families' any-hit tests: the plain version on
-the CPU (tests/test_torch_families.py, against the JAX package too) and
-the kernel on the card (tests/test_torch_cuda.py).  Imports neither JAX
-nor the JAX package.
+"""Scenes and rays for the families' any-hit and closest-hit tests: the
+plain versions on the CPU (tests/test_torch_families.py, against the JAX
+package too) and the kernels on the card (tests/test_torch_cuda.py).
+Imports neither JAX nor the JAX package.
 
 ``hard_scene`` is exact geometry (integer positions, axis-aligned unit
 normals and axes), so the hand-made rays of ``HARD_RAYS`` compute their
@@ -10,6 +10,10 @@ sphere, a tangent ray, rays parallel to a wall, rays along the cylinder's
 axis onto each cap and its rim, the body from the side, ``t_max`` exactly
 at a hit and one ulp past it, killed lanes, a radius-0 sphere, a
 zero-normal plane and a cylinder column past ``n_cylinders``.
+
+``tie_scene`` is exact too, and its rays ``TIE_RAYS`` meet equal t in two
+spheres, a sphere and a plane, a sphere and a cylinder's body or cap, a
+plane and a cap, and two cylinders: their closest-hit winners are known.
 """
 
 import dataclasses
@@ -17,6 +21,7 @@ import dataclasses
 import numpy as np
 
 EPS = 1e-4
+INF = float("inf")
 NEXT_4 = float(np.nextafter(np.float32(4.0), np.float32(np.inf)))
 NEXT_HALF = float(np.nextafter(np.float32(0.5), np.float32(np.inf)))
 NEAR_RIM = float(np.nextafter(np.float32(-2.0), np.float32(0.0)))  # 1 ulp inside x = -2: just off the rim
@@ -68,6 +73,66 @@ def hard_scene(pkg, **build_kw):
     b.add_light((0, 0, 9), 1.0)
     scene = b.build(pkg.Config(use_kdtree=False), **build_kw)
     return dataclasses.replace(scene, n_cylinders=1)
+
+
+def tie_scene(pkg, **build_kw):
+    """Two equal spheres (centre (0, 0, 5), radius 1), the plane z = 4
+    (normal -z) and two equal cylinders (base (0, 0, 4), axis +z, radius 1,
+    height 2), every one real."""
+    b = pkg.SceneBuilder()
+    for _ in range(2):
+        b.add_sphere((0, 0, 5), 1.0, (1, 0, 0))
+    b.add_plane((0, 0, 4), (0, 0, -1), (0, 1, 0))
+    for _ in range(2):
+        b.add_cylinder((0, 0, 4), (0, 0, 1), 1.0, 2.0, (0, 0, 1))
+    b.add_light((0, 0, 9), 1.0)
+    return b.build(pkg.Config(use_kdtree=False), **build_kw)
+
+
+NEXT_2 = float(np.nextafter(np.float32(2.0), np.float32(np.inf)))
+SPHERE, PLANE, CYLINDER = 0, 1, 2
+BODY, CAP_BASE, CAP_TOP = 0, 1, 2
+
+# (origin, direction, t_max, winner (family, row, kind) or None for a miss, t), each derived by hand
+TIE_RAYS = [
+    ((0, 0, 0), (0, 0, 1), INF, (SPHERE, 0, 0), 4.0),  # sphere, plane and base cap all at t = 4
+    ((0.5, 0, 0), (0, 0, 1), INF, (PLANE, 0, 0), 4.0),  # plane and base cap at 4, the sphere later
+    ((0.5, 0, 0), (0, 0, 1), 4.0, None, INF),  # ... t_max exactly there
+    ((0.5, 0, 0), (0, 0, 1), NEXT_4, (PLANE, 0, 0), 4.0),  # ... one ulp past it
+    ((0.5, 0, 4.5), (0, 0, 1), INF, (CYLINDER, 0, CAP_TOP), 1.5),  # inside both: the top caps tie
+    ((-3, 0, 5), (1, 0, 0), INF, (SPHERE, 0, 0), 2.0),  # sphere and both bodies at t = 2
+    ((-3, 0, 5), (1, 0, 0), 2.0, None, INF),  # ... t_max exactly there
+    ((-3, 0, 5), (1, 0, 0), NEXT_2, (SPHERE, 0, 0), 2.0),  # ... one ulp past it
+    ((-3, 0, 4.5), (1, 0, 0), INF, (CYLINDER, 0, BODY), 2.0),  # the bodies tie, the sphere later
+    ((0.5, 0, 10), (0, 0, -1), INF, (CYLINDER, 0, CAP_TOP), 4.0),  # the top caps, then sphere and plane
+    ((0, 0, 10), (0, 0, -1), INF, (SPHERE, 0, 0), 4.0),  # sphere and top caps at t = 4
+    ((0, 0, 0), (0, 0, 1), -1.0, None, INF),  # a killed ray
+]
+
+
+def tie_rays():
+    """``TIE_RAYS`` as o, d (N, 3), t_max (N,) float32, the winner codes
+    (N,) int32 (-1 a miss; ``ops/families.py``) and t (N,) float32."""
+    o, d, t_max, win, t = zip(*TIE_RAYS)
+    code = [-1 if w is None else w[1] << 4 | w[2] << 2 | w[0] for w in win]
+    return (np.array(o, np.float32), np.array(d, np.float32), np.array(t_max, np.float32),
+            np.array(code, np.int32), np.array(t, np.float32))
+
+
+def many_scene(pkg, device):
+    """300 spheres, 140 planes and 70 cylinders of which 67 are real: more
+    than one staged chunk of each family (256, 128, 64 rows)."""
+    rng = np.random.default_rng(21)
+    b = pkg.SceneBuilder()
+    for _ in range(300):
+        b.add_sphere(rng.uniform(-8, 8, 3), rng.uniform(0.05, 0.6), (1, 1, 1))
+    for _ in range(140):
+        nrm = rng.standard_normal(3)
+        b.add_plane(nrm / np.linalg.norm(nrm) * rng.uniform(9, 40), nrm, (1, 1, 1))
+    for _ in range(70):
+        b.add_cylinder(rng.uniform(-8, 8, 3), rng.standard_normal(3), rng.uniform(0.1, 0.8), rng.uniform(0.5, 3),
+                       (1, 1, 1))
+    return dataclasses.replace(b.build(pkg.Config(use_kdtree=False), device=device), n_cylinders=67)
 
 
 def hard_rays():
